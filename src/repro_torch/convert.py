@@ -1,0 +1,68 @@
+"""Carry the JAX package's state across to the port, as numpy arrays.
+
+A PQ state, a SmartPQ carry or a packed decision tree of the reference
+becomes the port's counterpart on `device` (the card unless the caller names
+another), and back.  Input is numpy arrays named like the reference's fields
+(the 11 `PQState` leaves, the 12 `SmartPQStats` fields, the 5 packed-tree
+arrays and its depth), so this module never touches a jax array: the caller
+converts with `numpy.asarray`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.core.classifier.inference import PackedTree, packed_from_arrays
+from repro_torch.core.pqueue.state import PQState
+from repro_torch.core.smartpq import SmartPQCarry, SmartPQStats
+from repro_torch.utils.hostsync import resolve_device
+
+STATE_FIELDS = tuple(f.name for f in dataclasses.fields(PQState))
+STATS_FIELDS = SmartPQStats._fields
+
+
+def _int32(name: str, a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype != np.int32:
+        raise TypeError(f"{name}: expected int32, got {a.dtype}")
+    return torch.as_tensor(np.array(a, order="C"), device=device)
+
+
+def state_from_numpy(arrays: Mapping[str, np.ndarray], device=None) -> PQState:
+    """`PQState` on `device` from its 11 int32 leaves, by field name."""
+    dev = resolve_device(device)
+    return PQState(**{f: _int32(f, arrays[f], dev) for f in STATE_FIELDS})
+
+
+def state_to_numpy(state: PQState) -> Dict[str, np.ndarray]:
+    return {f: getattr(state, f).detach().cpu().numpy() for f in STATE_FIELDS}
+
+
+def carry_from_numpy(state: Mapping[str, np.ndarray],
+                     stats: Mapping[str, np.ndarray],
+                     device=None) -> SmartPQCarry:
+    """`SmartPQCarry` on `device` from the state leaves and the 12 stats
+    fields, by name."""
+    dev = resolve_device(device)
+    return SmartPQCarry(
+        state_from_numpy(state, dev),
+        SmartPQStats(**{f: _int32(f, stats[f], dev) for f in STATS_FIELDS}),
+    )
+
+
+def carry_to_numpy(carry: SmartPQCarry):
+    """(state arrays, stats arrays), by field name."""
+    return state_to_numpy(carry.state), {
+        f: getattr(carry.stats, f).detach().cpu().numpy()
+        for f in STATS_FIELDS}
+
+
+def packed_tree_from_numpy(arrays: Mapping[str, object],
+                           device=None) -> PackedTree:
+    """`PackedTree` on `device` from feature, threshold, left, right, label
+    and depth."""
+    return packed_from_arrays(arrays, resolve_device(device))

@@ -1,0 +1,127 @@
+"""The port on the card: each CUDA kernel against its plain version, and the
+fused window on the card against the same window on the CPU.
+
+Every test here is marked `gpu` and skips where there is no CUDA device.
+The file imports neither JAX nor the JAX package, so it also runs on a
+machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.convert import carry_to_numpy
+from repro_torch.core.pqueue.schedules import Schedule, spray_draws
+from repro_torch.core.smartpq import SmartPQ, SmartPQConfig
+from repro_torch.kernels import ops as KO
+from repro_torch.kernels import ref as KR
+
+INF_KEY = 2**31 - 1
+
+# The JAX registry's validation shapes (src/repro/kernels/registry.py:481-546)
+# and the shapes the fused window gives each kernel.
+MERGE = [(4, 64, 16), (2, 256, 7), (6, 100, 60), (3, 8, 8), (16, 256, 64),
+         (16, 256, 4096)]
+TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
+        (1, 1424, 64), (2, 512, 64), (1, 128, 64)]
+SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64)]
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _sorted_rows(rng, S, W):
+    out = np.full((S, W), INF_KEY, np.int32)
+    for s in range(S):
+        n = rng.integers(0, W + 1)
+        out[s, :n] = np.sort(rng.integers(0, 200, n))
+    return out
+
+
+def _check(name, args, plain, **kw):
+    before = KO.LAUNCHES[name]
+    got = getattr(KO, name)(*args, **kw)
+    torch.cuda.synchronize()
+    assert KO.LAUNCHES[name] == before + 1
+    for g, w in zip(got, plain(*args, **kw)):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,H,R", MERGE)
+def test_windowed_merge_kernel_matches_plain(S, H, R):
+    dev = _card()
+    rng = np.random.default_rng(S * H + R)
+    head_k, run_k = _sorted_rows(rng, S, H), _sorted_rows(rng, S, R)
+    head_v = rng.integers(0, 1 << 20, (S, H)).astype(np.int32)
+    run_v = rng.integers(0, 1 << 20, (S, R)).astype(np.int32)
+    head_q = np.tile(np.arange(H, dtype=np.int32), (S, 1))
+    run_q = 1000 + np.tile(np.arange(R, dtype=np.int32), (S, 1))
+    args = [torch.as_tensor(a, device=dev) for a in
+            (head_k, head_v, head_q, run_k, run_v, run_q)]
+    _check("windowed_merge", args, KR.windowed_merge_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,N,k", TOPK)
+@pytest.mark.parametrize("inf_share", [0.0, 0.9])
+def test_topk_smallest_kernel_matches_plain(R, N, k, inf_share):
+    dev = _card()
+    rng = np.random.default_rng(R * N + k)
+    keys = rng.integers(0, 1 << 20, (R, N)).astype(np.int32)
+    keys[rng.random((R, N)) < inf_share] = INF_KEY
+    tags = np.tile(np.arange(N, dtype=np.int32), (R, 1))
+    args = [torch.as_tensor(a, device=dev) for a in (keys, tags)]
+    _check("topk_smallest", args, KR.topk_smallest_ref, k=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,B", SORT)
+def test_elim_sort_kernel_matches_plain(R, B):
+    dev = _card()
+    rng = np.random.default_rng(R * B)
+    keys = rng.integers(0, 64, (R, B)).astype(np.int32)
+    keys[rng.random((R, B)) < 0.3] = INF_KEY
+    tags = np.tile(np.arange(B, dtype=np.int32), (R, 1))
+    args = [torch.as_tensor(a, device=dev) for a in (keys, tags)]
+    _check("elim_sort", args, KR.elim_sort_ref)
+
+
+@pytest.mark.gpu
+def test_window_on_the_card_equals_the_cpu():
+    """The two-mode SmartPQ on the card (kernels) and on the CPU (plain
+    versions), same tree, inputs and draws: bit-identical carries."""
+    dev = _card()
+    cfg = SmartPQConfig(num_shards=8, capacity=512, head_width=64, npods=2,
+                        decision_interval=2,
+                        mode_schedules=(Schedule.SPRAY_HERLIHY,) * 2
+                        + (Schedule.HIER,))
+    gpu = SmartPQ(cfg, device=dev)
+    cpu = SmartPQ(cfg, tree=gpu.tree, device="cpu")
+    cg, cc = gpu.init(), cpu.init()
+    rng = np.random.default_rng(0)
+    gen = torch.Generator().manual_seed(0)
+    K, B = 5, 32
+    for w in range(8):
+        ops = torch.as_tensor((rng.random((K, B)) > (0.8 if w < 4 else 0.3))
+                              .astype(np.int32))
+        keys = torch.as_tensor(rng.integers(0, 4096, (K, B)).astype(np.int32))
+        vals = torch.as_tensor(rng.integers(0, 99, (K, B)).astype(np.int32))
+        nc = 64 if w % 2 else 8
+        draws = spray_draws(8, B, 64, steps=K, generator=gen)
+        cg, rg = gpu.run_window(cg, ops.to(dev), keys.to(dev), vals.to(dev),
+                                draws=tuple(d.to(dev) for d in draws),
+                                num_clients=nc)
+        cc, rc = cpu.run_window(cc, ops, keys, vals, draws=draws,
+                                num_clients=nc)
+        for a, b in zip(rg, rc):
+            assert torch.equal(a.cpu(), b)
+        for x, y in zip(carry_to_numpy(cg), carry_to_numpy(cc)):
+            for f in x:
+                np.testing.assert_array_equal(x[f], y[f], err_msg=f)
