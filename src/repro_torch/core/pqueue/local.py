@@ -2,9 +2,10 @@
 
 Counterpart of src/repro/core/pqueue/local.py.
 The hot-spot primitives — the windowed head merge of every insert, the
-top-k of every deleteMin tournament and the op-log sort of the elimination
-pre-pass — go through `repro_torch.kernels.ops`: the hand-written CUDA
-kernels on the card, their plain versions on the CPU.
+top-k of every deleteMin tournament, the op-log sort of the elimination
+pre-pass and MULTIQ's two-choice probe and commit tournament — go through
+`repro_torch.kernels.ops`: the hand-written CUDA kernels on the card, their
+plain versions on the CPU.
 
 Hot-path functions work on the head tier (S, H), so per-step cost follows
 the batch, not the capacity; the cold tail (S, T) is touched by O(batch)
@@ -457,6 +458,37 @@ def refill_head_guarded(state: PQState, pred: bool) -> PQState:
 
 
 # ---------------------------------------------------------------------------
+# legacy full-width merge (the reference for the `merge_sorted` kernel; the
+# insert path merges into the head tier instead, `merge_head_run`)
+# ---------------------------------------------------------------------------
+
+
+def merge_sorted(keys, vals, inc_keys, inc_vals, size, inc_count):
+    """Merge an ascending INF-padded run (S, R) into each shard's ascending
+    buffer (S, C), keeping the C smallest: a rank merge, stable toward the
+    existing elements (src/repro/core/pqueue/local.py:676-714).  Returns
+    (new_keys, new_vals, new_size, dropped)."""
+    S, C = keys.shape
+    R = inc_keys.shape[1]
+    dev = keys.device
+    rank_exist = _searchsorted(inc_keys, keys)
+    rank_inc = _searchsorted(keys, inc_keys, right=True)
+    pos_exist = _arange(C, dev)[None, :] + rank_exist
+    pos_inc = _arange(R, dev)[None, :] + rank_inc
+    pos_inc = torch.where(inc_keys == INF_KEY, C + R, pos_inc)
+    # positions reach C + R; every one at or past C is dropped with the
+    # spare columns
+    out_k = torch.full((S, C + R + 1), INF_KEY, dtype=keys.dtype, device=dev)
+    out_v = torch.zeros((S, C + R + 1), dtype=vals.dtype, device=dev)
+    for pos, k, v in ((pos_exist, keys, vals), (pos_inc, inc_keys, inc_vals)):
+        out_k.scatter_(1, pos.to(torch.int64), k)
+        out_v.scatter_(1, pos.to(torch.int64), v)
+    new_size = _i32(torch.clamp(size + inc_count, max=C))
+    dropped = _i32(torch.clamp(size + inc_count - C, min=0))
+    return out_k[:, :C], out_v[:, :C], new_size, dropped
+
+
+# ---------------------------------------------------------------------------
 # elimination pre-pass primitive
 # ---------------------------------------------------------------------------
 
@@ -491,6 +523,22 @@ def topk_of_merged(cand_keys: Tensor, cand_vals: Tensor,
         return kk[0], cand_vals[kt[0].to(torch.int64)]
     order = torch.sort(cand_keys, stable=True).indices[:m]
     return cand_keys[order], cand_vals[order]
+
+
+def twochoice_pick(shard_mins: Tensor, choice_a: Tensor, choice_b: Tensor,
+                   act: Tensor) -> Tensor:
+    """MULTIQ probe/commit: each active lane commits to the sampled shard
+    with the smaller cached min (tie: lower id); per-shard commit counts
+    (S,), through the `twochoice_pick` kernel."""
+    return KO.twochoice_counts(shard_mins, choice_a, choice_b, act)
+
+
+def multiq_select(win_k: Tensor, win_v: Tensor,
+                  take: Tensor) -> Tuple[Tensor, Tensor]:
+    """The MULTIQ commit tournament: the m smallest of the take-prefixes of
+    the (S, m) ascending head windows, ascending, through the
+    `multiq_select` kernel."""
+    return KO.multiq_select_topm(win_k, win_v, take)
 
 
 def count_winners_per_shard(cand_keys: Tensor, threshold_key: Tensor,

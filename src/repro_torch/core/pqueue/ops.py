@@ -135,15 +135,16 @@ def delete_min(
     npods: int = 1,
     generator: Optional[torch.Generator] = None,
 ) -> DeleteResult:
-    """Delete (up to) `active` minima with a static bound of m.  A spray
-    schedule without `draws` draws them from `generator`."""
+    """Delete (up to) `active` minima with a static bound of m.  A random
+    schedule (spray, MULTIQ) without `draws` draws them from `generator`."""
     schedule = Schedule(int(schedule))
     if active is None:
         active = m
     active = torch.as_tensor(active, dtype=torch.int32, device=state.device)
-    if schedule in SCH.SPRAY_SCHEDULES and draws is None:
-        draws = SCH.spray_draws(state.num_shards, m, state.head_width,
-                                generator=generator, device=state.device)
+    if draws is None:
+        draws = SCH.schedule_draws(schedule, None, state.num_shards, m,
+                                   state.head_width, generator=generator,
+                                   device=state.device)
     return SCH.SCHEDULE_FNS[schedule](state, m, active, draws, npods)
 
 

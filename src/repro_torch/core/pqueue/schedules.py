@@ -9,18 +9,28 @@ each schedule to the paper's evaluation cast:
     FFWD          ffwd              exact, single-server funnel
     LOCAL         ablation          per-shard pops, no global order
     SPRAY_FRASER  alistarh_fraser   relaxed, uniform spray window
-    MULTIQ        MultiQueue        relaxed two-choice (not ported yet)
+    MULTIQ        MultiQueue        relaxed, two-choice min-cache probes
 
 Every schedule is a `hot_*` core that reads and writes only the head tier
 (plus the scalar total) after `ensure_head`, and a full-state `delete_*`
 wrapper.  The tournaments go through `local.topk_of_merged`, the
-`topk_smallest` kernel.
+`topk_smallest` kernel; MULTIQ goes through the `twochoice_pick` and
+`multiq_select` kernels.
 
-Randomness: the spray cores take their draws as tensors —
-``draws = (shard_choice (m,) in [0, S), hi (S, W) in [0, 2**31 // (W+1) - 1))``,
-the two `jax.random.randint` draws of the reference (schedules.py:252-256,
-275-276) — so tests can feed both packages the same numbers.  `spray_draws`
-makes them on the device from a `torch.Generator`.
+Randomness: the random cores take their draws as tensors, the
+`jax.random.randint` draws of the reference, so tests can feed both
+packages the same numbers:
+
+    spray   (shard_choice (m,) in [0, S), hi (S, W) in [0, 2**31 // (W+1) - 1))
+            (schedules.py:252-256,275-276)
+    MULTIQ  (choice_a (m,) in [0, S), choice_b (m,) in [0, S))
+            (schedules.py:323-328)
+
+Both draw their first tensor from the same key and call, so for one step's
+key ``choice_a`` is the spray's ``shard_choice``: a step's draws are
+(shard_choice, hi[, choice_b]).  `step_draws` makes them on the device from
+a `torch.Generator` for every schedule of a config, and `schedule_draws`
+picks one core's draws out of them.
 """
 
 from __future__ import annotations
@@ -36,11 +46,6 @@ from repro_torch.kernels import ops as KO
 from repro_torch.utils.hostsync import host_bool
 
 _INT32_MAX = 2**31 - 1
-
-MULTIQ_NOT_PORTED = (
-    "Schedule.MULTIQ is not ported yet: it arrives in the next slice of the "
-    "port, together with its twochoice_pick and multiq_select kernels"
-)
 
 
 class Schedule(enum.IntEnum):
@@ -201,6 +206,11 @@ def spray_window(num_shards: int, m: int, head_width: int) -> int:
     return min(m + _head_pad(num_shards), head_width)
 
 
+def _shard_ids(num_shards: int, shape, generator, device) -> torch.Tensor:
+    return torch.randint(0, num_shards, shape, generator=generator,
+                         device=device, dtype=torch.int32)
+
+
 def spray_draws(num_shards: int, m: int, head_width: int, steps=None,
                 generator: Optional[torch.Generator] = None, device=None):
     """The spray cores' random draws, on `device`, from `generator`:
@@ -208,12 +218,47 @@ def spray_draws(num_shards: int, m: int, head_width: int, steps=None,
     (steps, S, W) with `steps`."""
     W = spray_window(num_shards, m, head_width)
     lead = () if steps is None else (steps,)
-    shard_choice = torch.randint(0, num_shards, lead + (m,),
-                                 generator=generator, device=device,
-                                 dtype=torch.int32)
+    shard_choice = _shard_ids(num_shards, lead + (m,), generator, device)
     hi = torch.randint(0, (1 << 31) // (W + 1) - 1, lead + (num_shards, W),
                        generator=generator, device=device, dtype=torch.int32)
     return shard_choice, hi
+
+
+def step_draws(schedules, num_shards: int, m: int, head_width: int,
+               steps=None, generator: Optional[torch.Generator] = None,
+               device=None):
+    """The draws `SmartPQ.step` (or, with `steps`, `run_window`) takes for
+    a config whose modes run `schedules`: (shard_choice, hi), plus choice_b
+    when MULTIQ is among them; None when no schedule draws."""
+    if not any(s in SPRAY_SCHEDULES or s == Schedule.MULTIQ
+               for s in schedules):
+        return None
+    draws = spray_draws(num_shards, m, head_width, steps=steps,
+                        generator=generator, device=device)
+    if Schedule.MULTIQ in tuple(schedules):
+        lead = () if steps is None else (steps,)
+        draws += (_shard_ids(num_shards, lead + (m,), generator, device),)
+    return draws
+
+
+def schedule_draws(schedule: Schedule, draws, num_shards: int, m: int,
+                   head_width: int,
+                   generator: Optional[torch.Generator] = None, device=None):
+    """The draws `schedule`'s core takes, picked from one step's
+    (shard_choice, hi[, choice_b]); without them (`draws` None) the step's
+    draws come from `step_draws((schedule,), ...)` and `generator`.  None
+    when the schedule draws nothing."""
+    if draws is None:
+        draws = step_draws((schedule,), num_shards, m, head_width,
+                           generator=generator, device=device)
+    if schedule in SPRAY_SCHEDULES:
+        return draws[0], draws[1]
+    if schedule == Schedule.MULTIQ:
+        if len(draws) < 3 or draws[2] is None:
+            raise ValueError("a MULTIQ step needs draws=(shard_choice, hi, "
+                             "choice_b)")
+        return draws[0], draws[2]
+    return None
 
 
 def _hot_spray(hot: HotTier, m: int, active, draws, adaptive_window: bool):
@@ -272,7 +317,24 @@ def hot_spray_fraser(hot, total, m, active, draws=None, npods=1):
 
 
 def hot_multiq(hot, total, m, active, draws=None, npods=1):
-    raise NotImplementedError(MULTIQ_NOT_PORTED)
+    """Relaxed MultiQueue (Williams & Sanders): each of the `active`
+    deleters samples two shards, reads their cached minima (column 0 of the
+    sorted heads) and commits to the one whose minimum is smaller; every
+    shard then serves its committed deleters from the head, a prefix pop.
+    No cross-shard coordination, and every pop lies within
+    `multiq_bound(S, m)` of the global rank w.h.p."""
+    if draws is None:
+        raise ValueError("MULTIQ needs draws=(choice_a, choice_b)")
+    choice_a, choice_b = draws
+    dev = hot.keys.device
+    lane = torch.arange(m, dtype=torch.int32, device=dev)
+    act = lane < torch.clamp(active, max=m)
+    counts = L.twochoice_pick(hot.keys[:, 0], choice_a, choice_b, act)
+    take = torch.minimum(counts, hot.size)
+    out_k, out_v = L.multiq_select(hot.keys[:, :m], hot.vals[:, :m], take)
+    hot = _pop_hot_prefix(hot, take)
+    n = torch.sum(take).to(torch.int32)
+    return hot, out_k, out_v, n
 
 
 def hot_local(hot, total, m, active, draws=None, npods=1):

@@ -6,24 +6,35 @@ evaluated on the queue's device every `decision_interval` steps, picks the
 mode; and a mode switch needs no synchronization point.  The mode set is
 `SmartPQConfig.mode_schedules`, indexed by classifier class id.
 
+The shipped modes are the reference's (smartpq.py:18-22):
+
+    0 MODE_OBLIVIOUS -> SPRAY_HERLIHY  relaxed, collective-free spray
+    1 MODE_MULTIQ    -> MULTIQ         relaxed MultiQueue, two-choice probes
+    2 MODE_AWARE     -> HIER           exact Nuddle pod delegation
+
 `run_window` runs K steps: the elimination pre-pass sorts the whole (K, B)
 operation log in one `elim_sort` launch in front of the loop, and each step
 then featurizes, decides, eliminates, inserts (`windowed_merge`), refills the
-head when needed and runs its mode's deleteMin (`topk_smallest`).
+head when needed and runs its mode's deleteMin (`topk_smallest` for SPRAY
+and HIER, `twochoice_pick` and `multiq_select` for MULTIQ).
+`make_mode_steps` gives one step function per mode on the same state, for a
+host that picks the mode itself.
 
 Where the reference stays on the device, the port reads a few predicates on
 the host (`utils.hostsync`): the `lax.cond`s of insert and of the tiered
 state's rebalances, and the step's mode in place of `lax.switch`.  A step
 costs three to six such reads.
 
-Randomness: the spray cores take their draws as tensors.  `run_window`
-accepts ``draws=(shard_choice (K, B), hi (K, S, W))`` — the reference's
+Randomness: the spray and MULTIQ cores take their draws as tensors.  The
+step's mode is decided on the device and read on the host, so a step may
+run either random core, and `step` takes the draws of both:
+``draws=(shard_choice (B,), hi (S, W), choice_b (B,))`` — the reference's
 per-step `jax.random` draws, so tests can feed both packages the same
-numbers — and otherwise draws them on the device from the caller's
-`torch.Generator`.
-
-This slice ports every schedule but MULTIQ, whose two kernels come in the
-next slice; a config that schedules MULTIQ is refused at construction.
+numbers.  The spray takes (shard_choice, hi), MULTIQ (shard_choice,
+choice_b): the reference draws MULTIQ's first choice with the very call the
+spray draws its shard choice with.  A config without MULTIQ may leave
+choice_b out.  `run_window` takes the same with a leading K axis, and
+without draws both draw on the device from the caller's `torch.Generator`.
 """
 
 from __future__ import annotations
@@ -42,6 +53,7 @@ from repro_torch.core.classifier.features import (
     CLASS_OBLIVIOUS,
     NUM_CLASSES,
     NUM_MODES,
+    featurize,
     featurize_t,
 )
 from repro_torch.core.classifier.inference import (
@@ -137,8 +149,6 @@ class SmartPQ:
 
     def __init__(self, config: SmartPQConfig = SmartPQConfig(),
                  tree: Optional[DecisionTree] = None, device=None):
-        if Schedule.MULTIQ in tuple(config.mode_schedules):
-            raise NotImplementedError(SCH.MULTIQ_NOT_PORTED)
         self.device = resolve_device(device)
         self.config = config
         if tree is None:
@@ -175,7 +185,7 @@ class SmartPQ:
         ops: Tensor,  # (B,)
         keys: Tensor,  # (B,)
         vals: Tensor,  # (B,)
-        draws: Optional[Tuple[Tensor, Tensor]] = None,
+        draws: Optional[Tuple[Tensor, ...]] = None,
         num_clients: Tensor | int | None = None,
         presorted: Optional[Tuple[Tensor, Tensor]] = None,
         mode_override: Tensor | int | None = None,
@@ -184,10 +194,11 @@ class SmartPQ:
     ):
         """One bulk step: update stats -> (maybe) re-decide the mode ->
         eliminate matched pairs -> insert the rest -> refill the head if
-        needed -> deleteMin under the selected mode.  `draws` are the spray
-        draws of this step ((B,), (S, W)); without them a spray mode draws
-        from `generator`.  `presorted` is `run_window`'s sorted insert log
-        row; `mode_override` (-1 = none) pins the mode for this step.
+        needed -> deleteMin under the selected mode.  `draws` are this
+        step's (shard_choice (B,), hi (S, W)[, choice_b (B,)]); without them
+        a random mode draws from `generator`.  `presorted` is `run_window`'s
+        sorted insert log row; `mode_override` (-1 = none) pins the mode for
+        this step.
         Returns (carry, DeleteResult) and, with `return_features`, the
         step's (4,) float32 classifier features."""
         c = self.config
@@ -257,11 +268,11 @@ class SmartPQ:
         total = state.total_size
 
         schedule = c.mode_schedules[host_int(new_mode)]
-        if schedule in SCH.SPRAY_SCHEDULES and draws is None:
-            draws = SCH.spray_draws(state.num_shards, B, state.head_width,
-                                    generator=generator, device=dev)
         hot, out_k, out_v, n_out = SCH.HOT_SCHEDULE_FNS[schedule](
-            SCH.hot_tier(state), total, B, active, draws, c.npods)
+            SCH.hot_tier(state), total, B, active,
+            SCH.schedule_draws(schedule, draws, state.num_shards, B,
+                               state.head_width, generator=generator,
+                               device=dev), c.npods)
         res = DeleteResult(SCH.attach_hot(state, hot), out_k, out_v, n_out)
         if c.eliminate:
             res = O.merge_eliminated(elim_k, elim_v, n_elim, res)
@@ -294,7 +305,7 @@ class SmartPQ:
         ops: Tensor,  # (K, B)
         keys: Tensor,  # (K, B)
         vals: Tensor,  # (K, B)
-        draws: Optional[Tuple[Tensor, Tensor]] = None,
+        draws: Optional[Tuple[Tensor, ...]] = None,
         num_clients: Tensor | int | None = None,  # scalar or (K,)
         mode_override: Tensor | int | None = None,  # scalar or (K,)
         generator: Optional[torch.Generator] = None,
@@ -302,8 +313,9 @@ class SmartPQ:
         """K adaptive steps, equal to K calls of `step` with the same
         draws; only the elimination pre-pass's operation-log sort is hoisted
         in front of the loop, one `elim_sort` launch over the (K, B) log.
-        `draws` = (shard_choice (K, B), hi (K, S, W)); without them every
-        step's draws come from `generator`, all at once, on the device.
+        `draws` = (shard_choice (K, B), hi (K, S, W)[, choice_b (K, B)]);
+        without them every step's draws come from `generator`, all at once,
+        on the device.
         Float key batches are sanitized once up front."""
         c = self.config
         dev = carry.state.device
@@ -322,11 +334,10 @@ class SmartPQ:
         if c.eliminate:
             sk, stg = L.sort_op_log(torch.where(ops == OP_INSERT, keys,
                                                 INF_KEY))
-        if draws is None and any(s in SCH.SPRAY_SCHEDULES
-                                 for s in c.mode_schedules):
-            draws = SCH.spray_draws(carry.state.num_shards, B,
-                                    carry.state.head_width, steps=K,
-                                    generator=generator, device=dev)
+        if draws is None:
+            draws = SCH.step_draws(c.mode_schedules, carry.state.num_shards,
+                                   B, carry.state.head_width, steps=K,
+                                   generator=generator, device=dev)
         ovs = None
         if mode_override is not None:
             ovs = torch.as_tensor(mode_override, dtype=torch.int32,
@@ -336,7 +347,7 @@ class SmartPQ:
         for t in range(K):
             carry, res = self.step(
                 carry, ops[t], keys[t], vals[t],
-                draws=None if draws is None else (draws[0][t], draws[1][t]),
+                draws=None if draws is None else tuple(d[t] for d in draws),
                 num_clients=nc[t],
                 presorted=(sk[t], stg[t]) if c.eliminate else None,
                 mode_override=None if ovs is None else ovs[t],
@@ -357,6 +368,51 @@ class SmartPQ:
         if viols:
             raise viols[0]
 
+    # -- host-dispatch variant ------------------------------------------------
+
+    def make_mode_steps(self):
+        """One step function per mode, all on the same state layout, so a
+        host that picks the mode itself flips modes between calls with no
+        copy (src/repro/core/smartpq.py:471-507).  Each takes
+        (state, ops, keys, vals, draws=None, generator=None) with `draws` as
+        in `step`, runs the elimination pre-pass, the insert and its mode's
+        deleteMin, and returns the `DeleteResult`.  No decision, no stats."""
+        c = self.config
+
+        def _mk(schedule: Schedule):
+            delete = SCH.SCHEDULE_FNS[schedule]
+
+            def mode_step(state: PQState, ops, keys, vals, draws=None,
+                          generator=None) -> DeleteResult:
+                B = ops.shape[0]
+                ins_mask = ops == OP_INSERT
+                b_del = _i32(torch.sum(ops == OP_DELETE_MIN))
+                active = b_del
+                if c.eliminate:
+                    sk, stg = L.sort_op_log(torch.where(ins_mask, keys,
+                                                        INF_KEY))
+                    elim_k, elim_v, n_elim, keep_lane = O.elim_split(
+                        state, sk, stg, vals, b_del)
+                    ins_mask = ins_mask & keep_lane
+                    active = b_del - n_elim
+                st, _ = O.insert(state, keys, vals, mask=ins_mask)
+                res = delete(st, B, active, SCH.schedule_draws(
+                    schedule, draws, st.num_shards, B, st.head_width,
+                    generator=generator, device=st.device), c.npods)
+                if c.eliminate:
+                    res = O.merge_eliminated(elim_k, elim_v, n_elim, res)
+                return res
+
+            return mode_step
+
+        return {mode: _mk(s) for mode, s in enumerate(c.mode_schedules)}
+
+    def predict_mode_host(self, num_clients: int, size: int, key_range: int,
+                          insert_frac: float) -> int:
+        """The tree's class for one feature point, on the host (offline and
+        debugging use; `step` decides on the device)."""
+        return int(self.tree.predict(
+            featurize(num_clients, size, key_range, insert_frac))[0])
 
 
 def carry_fingerprint(carry: SmartPQCarry) -> int:

@@ -27,7 +27,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
-SOURCES = ("windowed_merge", "topk_smallest", "elim_sort")
+SOURCES = ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
+           "multiq_select", "merge_sorted")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -107,6 +108,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         "windowed_merge": [p] * 9 + [i, i, i, p],
         "topk_smallest": [p] * 4 + [i, i, i, p],
         "elim_sort": [p] * 4 + [i, i, p],
+        "twochoice_pick": [p, i] * 4 + [p, i, i, p],
+        "multiq_select": [p, i] * 3 + [p, p, i, i, p],
+        "merge_sorted": [p] * 6 + [i, i, i, p],
     }[name]
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = sig

@@ -13,20 +13,24 @@ import pytest
 import torch
 
 from repro_torch.convert import carry_to_numpy
-from repro_torch.core.pqueue.schedules import Schedule, spray_draws
+from repro_torch.core.pqueue.schedules import (Schedule, spray_draws,
+                                               step_draws)
 from repro_torch.core.smartpq import SmartPQ, SmartPQConfig
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import ref as KR
 
 INF_KEY = 2**31 - 1
 
-# The JAX registry's validation shapes (src/repro/kernels/registry.py:481-546)
+# The JAX registry's validation shapes (src/repro/kernels/registry.py:481-557)
 # and the shapes the fused window gives each kernel.
 MERGE = [(4, 64, 16), (2, 256, 7), (6, 100, 60), (3, 8, 8), (16, 256, 64),
          (16, 256, 4096)]
 TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         (1, 1424, 64), (2, 512, 64), (1, 128, 64)]
 SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64)]
+TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57)]
+MULTIQ = [(4, 16), (16, 64), (2, 8), (16, 57)]
+MERGE_SORTED = [(4, 64, 16), (2, 256, 7), (1, 64, 1), (8, 1024, 128)]
 
 
 def _card():
@@ -43,9 +47,9 @@ def _sorted_rows(rng, S, W):
     return out
 
 
-def _check(name, args, plain, **kw):
+def _check(name, args, plain, wrapper=None, **kw):
     before = KO.LAUNCHES[name]
-    got = getattr(KO, name)(*args, **kw)
+    got = getattr(KO, wrapper or name)(*args, **kw)
     torch.cuda.synchronize()
     assert KO.LAUNCHES[name] == before + 1
     for g, w in zip(got, plain(*args, **kw)):
@@ -91,6 +95,108 @@ def test_elim_sort_kernel_matches_plain(R, B):
     tags = np.tile(np.arange(B, dtype=np.int32), (R, 1))
     args = [torch.as_tensor(a, device=dev) for a in (keys, tags)]
     _check("elim_sort", args, KR.elim_sort_ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,m", TWOCHOICE)
+@pytest.mark.parametrize("tied", [False, True])
+def test_twochoice_kernel_matches_plain(S, m, tied):
+    """`mins` is a strided column of a head tier, as on the main path;
+    `tied` draws the minima from 3 values (INF among them), so most lanes
+    break ties by shard id."""
+    dev = _card()
+    rng = np.random.default_rng(S * m + tied)
+    head = rng.integers(0, 1 << 20, (S, 40)).astype(np.int32)
+    if tied:
+        head[:, 0] = rng.choice(np.array([5, 9, INF_KEY], np.int32), S)
+    mins = torch.as_tensor(head, device=dev)[:, 0]
+    a, b = (torch.as_tensor(rng.integers(0, S, m).astype(np.int32),
+                            device=dev) for _ in range(2))
+    act = torch.as_tensor(rng.random(m) < 0.8, device=dev)
+    before = KO.LAUNCHES["twochoice_pick"]
+    got = KO.twochoice_counts(mins, a, b, act)
+    torch.cuda.synchronize()
+    assert KO.LAUNCHES["twochoice_pick"] == before + 1
+    want = KR.twochoice_counts_ref(mins, a, b, act.to(torch.int32))
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    assert int(got.sum()) == int(act.sum())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,m", MULTIQ)
+def test_multiq_select_kernel_matches_plain(S, m):
+    """The windows are row-strided views of a (S, 256) head tier."""
+    dev = _card()
+    rng = np.random.default_rng(S * m)
+    head_k = _sorted_rows(rng, S, 256)
+    head_v = rng.integers(0, 1 << 20, (S, 256)).astype(np.int32)
+    take = rng.integers(0, m + 1, S).astype(np.int32)
+    args = (torch.as_tensor(head_k, device=dev)[:, :m],
+            torch.as_tensor(head_v, device=dev)[:, :m],
+            torch.as_tensor(take, device=dev))
+    _check("multiq_select", args, KR.multiq_select_ref,
+           wrapper="multiq_select_topm")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,C,R", MERGE_SORTED)
+def test_merge_sorted_kernel_matches_plain(S, C, R):
+    dev = _card()
+    rng = np.random.default_rng(S * C + R)
+    buf_k, run_k = _sorted_rows(rng, S, C), _sorted_rows(rng, S, R)
+    buf_v = np.tile(np.arange(C, dtype=np.int32), (S, 1))
+    run_v = (1 << 20) + np.tile(np.arange(R, dtype=np.int32), (S, 1))
+    args = [torch.as_tensor(a, device=dev) for a in
+            (buf_k, buf_v, run_k, run_v)]
+    _check("merge_sorted", args, KR.merge_sorted_runs_ref,
+           wrapper="merge_sorted_runs")
+
+
+@pytest.mark.gpu
+def test_merge_sorted_refuses_rows_above_shared_memory():
+    dev = _card()
+    buf = torch.zeros((1, 1 << 14), dtype=torch.int32, device=dev)
+    run = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="merge_sorted kernel launch"):
+        KO.merge_sorted_runs(buf, buf, run, run)
+
+
+@pytest.mark.gpu
+def test_three_mode_window_on_the_card_equals_the_cpu():
+    """The default three-mode SmartPQ, with the MULTIQ mode forced on some
+    windows and chosen by the tree on others, on the card and on the CPU:
+    bit-identical carries and outputs, and all three modes ran."""
+    dev = _card()
+    cfg = SmartPQConfig(num_shards=8, capacity=1024, npods=2,
+                        decision_interval=2)
+    gpu = SmartPQ(cfg, device=dev)
+    cpu = SmartPQ(cfg, tree=gpu.tree, device="cpu")
+    cg, cc = gpu.init(), cpu.init()
+    rng = np.random.default_rng(1)
+    gen = torch.Generator().manual_seed(1)
+    K, B = 6, 32
+    modes = set()
+    for w, (ins, nc, ov) in enumerate([(0.95, 512, -1), (0.6, 16, -1),
+                                       (0.6, 16, 1), (0.3, 64, -1),
+                                       (0.5, 64, 0)]):
+        ops = torch.as_tensor((rng.random((K, B)) > ins).astype(np.int32))
+        keys = torch.as_tensor(rng.integers(0, 16384, (K, B))
+                               .astype(np.int32))
+        vals = torch.as_tensor(rng.integers(0, 99, (K, B)).astype(np.int32))
+        draws = step_draws(cfg.mode_schedules, 8, B, 256, steps=K,
+                           generator=gen)
+        cg, rg = gpu.run_window(cg, ops.to(dev), keys.to(dev), vals.to(dev),
+                                draws=tuple(d.to(dev) for d in draws),
+                                num_clients=nc, mode_override=ov)
+        cc, rc = cpu.run_window(cc, ops, keys, vals, draws=draws,
+                                num_clients=nc, mode_override=ov)
+        for a, b in zip(rg, rc):
+            assert torch.equal(a.cpu(), b)
+        modes |= set(rc.mode.tolist())
+        for x, y in zip(carry_to_numpy(cg), carry_to_numpy(cc)):
+            for f in x:
+                np.testing.assert_array_equal(x[f], y[f], err_msg=f)
+    assert modes == {0, 1, 2}
 
 
 @pytest.mark.gpu

@@ -23,20 +23,34 @@ torch.set_num_threads(1)
 
 INF_KEY = 2**31 - 1
 INTERPRET = "interpret@rows_per_block=1"
+# The JAX package's Pallas interpret arm of each kernel, where it is not
+# INTERPRET (the MULTIQ kernels have no rows_per_block axis).
+PALLAS_ARM = {"twochoice_counts": "interpret",
+              "multiq_select_topm": "interpret"}
 
 # (kernel, coords): the registry's validation shapes, then the main path's
+# ((16, 64) is a validation shape of both MULTIQ kernels; m = 57 is the
+# lane width of the paper's Fig. 11 trace; (8, 1024, 128) is
+# merge_sorted's tuning shape, it has no main-path shape)
 MAIN_SHAPES = {
     "windowed_merge": ({"S": 16, "H": 256, "R": 64},),
     "topk_smallest": ({"R": 1, "N": 1424, "k": 64, "dtype": "int32"},
                       {"R": 2, "N": 512, "k": 64, "dtype": "int32"},
                       {"R": 1, "N": 128, "k": 64, "dtype": "int32"}),
     "elim_sort": ({"R": 64, "B": 64},),
+    "twochoice_counts": ({"S": 16, "m": 57},),
+    "multiq_select_topm": ({"S": 16, "m": 57},),
+    "merge_sorted_runs": ({"S": 8, "C": 1024, "R": 128},),
 }
 CASES = [
     (name, coords)
-    for name in ("windowed_merge", "topk_smallest", "elim_sort")
+    for name in ("windowed_merge", "topk_smallest", "elim_sort",
+                 "twochoice_counts", "multiq_select_topm",
+                 "merge_sorted_runs")
     for coords in REG.REGISTRY[name].validation_shapes + MAIN_SHAPES[name]
 ]
+ARM_CASES = [(arm if arm == "ref" else PALLAS_ARM.get(name, INTERPRET), name,
+              coords) for arm in ("ref", INTERPRET) for name, coords in CASES]
 
 
 def _inputs(name, coords, seed=0):
@@ -60,13 +74,72 @@ def _assert_same(got, want):
         np.testing.assert_array_equal(g, w)
 
 
-@pytest.mark.parametrize("name,coords", CASES,
-                         ids=[f"{n}-{REG.sig(c)}" for n, c in CASES])
-@pytest.mark.parametrize("arm", ["ref", INTERPRET])
-def test_plain_matches_jax_kernel(name, coords, arm):
+@pytest.mark.parametrize(
+    "arm,name,coords", ARM_CASES,
+    ids=[f"{a}-{n}-{REG.sig(c)}" for a, n, c in ARM_CASES])
+def test_plain_matches_jax_kernel(arm, name, coords):
     args, kw = _inputs(name, coords)
     want = getattr(JO, name)(*args, **kw, arm=arm)
-    _assert_same(_port(name, args, kw), want)
+    got = _port(name, args, kw)
+    _assert_same(got if isinstance(got, tuple) else (got,),
+                 want if isinstance(want, tuple) else (want,))
+
+
+def test_twochoice_ties_and_inactive_lanes_match_jax():
+    """Minima drawn from three values (INF among them): most lanes break
+    ties by shard id; a fifth of the lanes are parked."""
+    rng = np.random.default_rng(4)
+    mins = rng.choice(np.array([5, 9, INF_KEY], np.int32), 16)
+    a, b = (rng.integers(0, 16, 57).astype(np.int32) for _ in range(2))
+    act = rng.random(57) < 0.8
+    got = TO.twochoice_counts(*(torch.as_tensor(x) for x in (mins, a, b,
+                                                             act)))
+    for arm in ("ref", "interpret"):
+        _assert_same((got,), (JO.twochoice_counts(mins, a, b, act,
+                                                  arm=arm),))
+    assert int(got.sum()) == int(act.sum())
+
+
+def test_multiq_select_reads_strided_windows():
+    """The MULTIQ core hands the kernel wrapper the window
+    head_keys[:, :m] of the (S, H) head tier, a view; the answer is the
+    contiguous copy's."""
+    args, _ = _inputs("multiq_select_topm", {"S": 16, "m": 57})
+    win_k, win_v, take = (torch.as_tensor(np.array(a)) for a in args)
+    head_k = torch.full((16, 256), INF_KEY, dtype=torch.int32)
+    head_v = torch.zeros((16, 256), dtype=torch.int32)
+    head_k[:, :57], head_v[:, :57] = win_k, win_v
+    got = TO.multiq_select_topm(head_k[:, :57], head_v[:, :57], take)
+    _assert_same(got, JO.multiq_select_topm(*args, arm="interpret"))
+
+
+def test_merge_sorted_kernel_agrees_with_local_merge():
+    """The capacity-wide merge keeps what the rank merge of the JAX
+    package's `local.merge_sorted` keeps (tests/test_kernels.py:86-108),
+    and the port's own `local.merge_sorted` is bit-identical to it."""
+    from repro.core.pqueue import local as JL
+    from repro_torch.core.pqueue import local as TL
+
+    rng = np.random.default_rng(5)
+    S, C, R = 4, 64, 16
+    buf_k = np.full((S, C), INF_KEY, np.int32)
+    run_k = np.full((S, R), INF_KEY, np.int32)
+    sizes, counts = np.zeros(S, np.int32), np.zeros(S, np.int32)
+    for s in range(S):
+        sizes[s] = rng.integers(0, C - R)
+        buf_k[s, :sizes[s]] = np.sort(rng.integers(0, 500, sizes[s]))
+        counts[s] = rng.integers(0, R + 1)
+        run_k[s, :counts[s]] = np.sort(rng.integers(0, 500, counts[s]))
+    buf_v = rng.integers(0, 99, (S, C)).astype(np.int32)
+    run_v = rng.integers(0, 99, (S, R)).astype(np.int32)
+    args = (buf_k, buf_v, run_k, run_v, sizes, counts)
+    want = JL.merge_sorted(*args)
+    got = TL.merge_sorted(*(torch.as_tensor(a) for a in args))
+    _assert_same(got, want)
+    zeros = np.zeros_like(run_k)
+    mk, _ = TO.merge_sorted_runs(*(torch.as_tensor(a) for a in (
+        buf_k, np.zeros_like(buf_k), run_k, zeros)))
+    np.testing.assert_array_equal(mk.numpy(), np.asarray(want[0]))
 
 
 def test_topk_inf_lanes_match_jax_path():

@@ -2,8 +2,8 @@
 
 The same seeded numpy inputs go through both packages, op by op, and every
 output and every `PQState` leaf (dtype included) must be bit-identical.  The
-spray schedules take the reference's `jax.random` draws as tensors, computed
-here from the same per-step keys.
+spray and MULTIQ schedules take the reference's `jax.random` draws as
+tensors, computed here from the same per-step keys.
 """
 
 import dataclasses
@@ -39,7 +39,7 @@ torch.set_num_threads(1)
 
 INF_KEY = 2**31 - 1
 PORTED = ["STRICT_FLAT", "SPRAY_HERLIHY", "HIER", "FFWD", "LOCAL",
-          "SPRAY_FRASER"]
+          "SPRAY_FRASER", "MULTIQ"]
 
 
 def t(a):
@@ -84,6 +84,13 @@ def spray_draws(key, m, S, H):
     hi = jax.random.randint(k_pos, (S, W), 0, (1 << 31) // (W + 1) - 1,
                             dtype=jnp.int32)
     return np.asarray(sc), np.asarray(hi)
+
+
+def multiq_draws(key, m, S):
+    """The reference MULTIQ core's two draws (schedules.py:323-328)."""
+    k_a, k_b = jax.random.split(key)
+    return (np.asarray(jax.random.randint(k_a, (m,), 0, S)),
+            np.asarray(jax.random.randint(k_b, (m,), 0, S)))
 
 
 # ---------------------------------------------------------------------------
@@ -133,9 +140,11 @@ def _step_both(japply, jst, tst, ops, keys, vals, schedule, step,
                                 npods=npods, eliminate=eliminate)
     jr = japply[eliminate](jst, jnp.asarray(ops), jnp.asarray(keys),
                            jnp.asarray(vals), rng=key)
-    sc, hi = spray_draws(key, B, S, H)
+    draws = (multiq_draws(key, B, S) if schedule == "MULTIQ"
+             else spray_draws(key, B, S, H))
     tr = TO.apply_op_batch(tst, t(ops), t(keys), t(vals),
-                           schedule=TS[schedule], draws=(t(sc), t(hi)),
+                           schedule=TS[schedule],
+                           draws=tuple(t(d) for d in draws),
                            npods=npods, eliminate=eliminate)
     where = f"{schedule} step {step}"
     for f in ("deleted_keys", "deleted_vals", "n_deleted", "dropped"):

@@ -1,11 +1,12 @@
-"""Parity of the port's SmartPQ slice with the JAX package, on the CPU.
+"""Parity of the port's SmartPQ with the JAX package, on the CPU.
 
-The configuration is the paper's two-mode SmartPQ: the NUMA-oblivious spray
-(SPRAY_HERLIHY, classes 0 and 1) and the NUMA-aware Nuddle tournament (HIER,
-class 2).  The port's `run_window` must be bit-identical to the JAX
-`SmartPQ.jit_run_window` — per-step outputs, the mode trace, every state
-leaf and stats field, dtypes included — with the reference's spray draws
-injected, at the small coordinates of tests/test_fused_window.py.
+The configurations are the default three-mode SmartPQ (SPRAY_HERLIHY,
+MULTIQ, HIER for classes 0, 1, 2), the paper's two-mode one (the spray for
+classes 0 and 1) and single-schedule ones.  The port's `run_window` must be
+bit-identical to the JAX `SmartPQ.jit_run_window` — per-step outputs, the
+mode trace, every state leaf and stats field, dtypes included — with the
+reference's spray and MULTIQ draws injected, at the small coordinates of
+tests/test_fused_window.py.
 """
 
 import dataclasses
@@ -28,6 +29,7 @@ from repro.core.pqueue.schedules import Schedule as JS
 from repro.core.smartpq import SmartPQ as JPQ
 from repro.core.smartpq import SmartPQConfig as JCfg
 from repro.core.smartpq import carry_fingerprint as j_carry_fingerprint
+from repro.workloads import traces as JT
 import repro_torch.core.pqueue.local as TL
 from repro_torch import convert
 from repro_torch.core.classifier.dataset import make_test_set, make_training_set
@@ -38,6 +40,7 @@ from repro_torch.core.pqueue.schedules import Schedule as TS
 from repro_torch.core.smartpq import SmartPQ as TPQ
 from repro_torch.core.smartpq import SmartPQConfig as TCfg
 from repro_torch.core.smartpq import carry_fingerprint as t_carry_fingerprint
+from repro_torch.workloads import traces as TT
 
 # The tensors here are small: one intra-op thread per test process keeps
 # torch from contending for the cores with the suite's other workers.
@@ -45,6 +48,7 @@ torch.set_num_threads(1)
 
 S, C, B, K = 8, 512, 32, 5
 TWO_MODE = ("SPRAY_HERLIHY", "SPRAY_HERLIHY", "HIER")
+THREE_MODE = ("SPRAY_HERLIHY", "MULTIQ", "HIER")
 
 
 @pytest.fixture(scope="module")
@@ -76,18 +80,21 @@ def _window(seed, ins_frac=0.5, key_range=4096, num_clients=64):
     return ops, keys, vals, rngs, nc
 
 
-def _draws(rngs, H):
-    """The reference spray core's per-step draws (schedules.py:252-256,
-    275-276) from the window's step keys."""
+def _draws(rngs, H, S=S, B=B):
+    """The reference's per-step draws from the window's step keys: the
+    spray core's (shard_choice, hi) (schedules.py:252-256,275-276) and the
+    MULTIQ core's second choice (schedules.py:323-328); its first choice is
+    shard_choice, the same call on the same key."""
     pad = (max(int(S - 1).bit_length(), 1) + 1) ** 2
     W = min(B + pad, H)
-    sc, hi = [], []
+    sc, hi, cb = [], [], []
     for r in rngs:
         k_shard, k_pos = jax.random.split(r)
         sc.append(np.asarray(jax.random.randint(k_shard, (B,), 0, S)))
         hi.append(np.asarray(jax.random.randint(
             k_pos, (S, W), 0, (1 << 31) // (W + 1) - 1, dtype=jnp.int32)))
-    return torch.as_tensor(np.stack(sc)), torch.as_tensor(np.stack(hi))
+        cb.append(np.asarray(jax.random.randint(k_pos, (B,), 0, S)))
+    return tuple(torch.as_tensor(np.stack(x)) for x in (sc, hi, cb))
 
 
 def _t(a):
@@ -101,7 +108,9 @@ def _run_both(jpq, tpq, jc, tc, window, mode_override=None):
     jc, jr = jpq.jit_run_window(jc, jnp.asarray(ops), jnp.asarray(keys),
                                 jnp.asarray(vals), rngs, jnp.asarray(nc), jov)
     tc, tr = tpq.run_window(tc, _t(ops), _t(keys), _t(vals),
-                            draws=_draws(rngs, tc.state.head_width),
+                            draws=_draws(rngs, tc.state.head_width,
+                                         S=tc.state.num_shards,
+                                         B=ops.shape[1]),
                             num_clients=_t(nc), mode_override=tov)
     _assert_equal(jr, tr, ("keys", "vals", "n_out", "mode"))
     _assert_carry_equal(jc, tc)
@@ -187,8 +196,10 @@ def test_features_within_one_ulp_and_class_trace_exact(trees):
 
 
 @pytest.mark.parametrize("schedules", [TWO_MODE, ("SPRAY_HERLIHY",) * 3,
-                                       ("HIER",) * 3],
-                         ids=["adaptive", "spray", "hier"])
+                                       ("HIER",) * 3, THREE_MODE,
+                                       ("MULTIQ",) * 3],
+                         ids=["adaptive", "spray", "hier", "three_mode",
+                              "multiq"])
 def test_run_window_bitmatches_jax(trees, schedules):
     jpq, tpq = _pair(trees, schedules)
     jc, tc = jpq.init(), tpq.init()
@@ -236,7 +247,7 @@ def test_run_window_equals_k_steps(trees):
     """The port's window is K of its own steps (smartpq.py:393-397)."""
     _, tpq = _pair(trees, head_width=64)
     ops, keys, vals, rngs, nc = _window(5, 0.5)
-    sc, hi = _draws(rngs, 64)
+    sc, hi, _ = _draws(rngs, 64)
     cw, rw = tpq.run_window(tpq.init(), _t(ops), _t(keys), _t(vals),
                             draws=(sc, hi), num_clients=64)
     cs = tpq.init()
@@ -267,6 +278,117 @@ def test_jax_carry_carries_across(trees):
     _run_both(jpq, tpq, jc, tc, _window(22, 0.4))
 
 
-def test_multiq_config_is_refused(trees):
-    with pytest.raises(NotImplementedError, match="next slice"):
-        TPQ(TCfg(num_shards=S, capacity=C), tree=trees[1], device="cpu")
+# ---------------------------------------------------------------------------
+# the default three-mode SmartPQ
+# ---------------------------------------------------------------------------
+
+
+def test_default_config_constructs_and_runs():
+    """`SmartPQ()` takes the default three-mode config, trains its own tree
+    and runs a window from a `torch.Generator`; forcing mode 1 runs MULTIQ."""
+    pq = TPQ(device="cpu")
+    assert tuple(pq.config.mode_schedules) == tuple(
+        TS[s] for s in THREE_MODE)
+    ops, keys, vals, _, _ = _window(30, 0.5)
+    gen = torch.Generator().manual_seed(0)
+    carry, res = pq.run_window(pq.init(), _t(ops), _t(keys), _t(vals),
+                               mode_override=1, generator=gen)
+    assert res.mode.tolist() == [1] * K
+    assert int(carry.stats.mode_steps[1]) == K
+    admitted = int(np.sum(ops == 0))
+    assert int(carry.state.total_size) == admitted - int(res.n_out.sum())
+    assert int(res.n_out.sum()) > 0
+    assert not pq.validate_carry(carry)
+
+
+def test_three_mode_window_with_mode_override_bitmatches_jax(trees):
+    """Overrides pin every mode, MULTIQ (1) among them, between steps the
+    classifier decides."""
+    jpq, tpq = _pair(trees, THREE_MODE, head_width=64)
+    jc, tc = jpq.init(), tpq.init()
+    for w, ov in enumerate(([-1, 1, 1, -1, 2], [1, 0, -1, 1, 1],
+                            [-1, -1, 1, 2, 0])):
+        jc, tc, tr = _run_both(jpq, tpq, jc, tc, _window(40 + w, 0.6),
+                               mode_override=np.asarray(ov, np.int32))
+        pinned = np.asarray(ov) >= 0
+        np.testing.assert_array_equal(tr.mode.numpy()[pinned],
+                                      np.asarray(ov)[pinned])
+    assert int(tc.stats.mode_steps[1]) >= 6
+
+
+def test_bursty_three_phase_trace_visits_every_mode(trees):
+    """The three-phase trace of tests/test_smartpq.py:125-170 (the bursty
+    M/M/1 profile): many clients inserting, then a mixed load from few
+    clients, then a delete-heavy one drive oblivious -> MULTIQ -> aware, step
+    for step as the JAX package does."""
+    cfg = dict(num_shards=8, capacity=1024, npods=2, decision_interval=2)
+    jpq = JPQ(JCfg(**cfg), tree=trees[0])
+    tpq = TPQ(TCfg(**cfg), tree=trees[1], device="cpu")
+    Bw = 128
+    rng = np.random.default_rng(0)
+    ops, keys, clients = [], [], []
+    for d, p, steps in TT.BURSTY_PHASES:
+        for _ in range(steps):
+            ops.append((rng.random(Bw) > p).astype(np.int32))
+            keys.append(rng.integers(0, 16384, Bw).astype(np.int32))
+            clients.append(d)
+    ops, keys = np.stack(ops), np.stack(keys)
+    Kw = ops.shape[0]
+    window = (ops, keys, np.zeros((Kw, Bw), np.int32),
+              jax.random.split(jax.random.key(1), Kw),
+              np.asarray(clients, np.int32))
+    _, tc, tr = _run_both(jpq, tpq, jpq.init(), tpq.init(), window)
+    modes = tr.mode.tolist()
+    p1 = TT.BURSTY_PHASES[0][2]
+    p2 = p1 + TT.BURSTY_PHASES[1][2]
+    assert 0 in modes[:p1] and 1 in modes[p1:p2] and 2 in modes[p2:], modes
+    assert int(tc.stats.transitions) >= 2
+
+
+def test_paper_mix_trace_multiq_to_spray_bitmatches_jax(trees):
+    """The paper's Fig. 10 c_mix trace (Table 2, 22 clients) at the
+    benchmark's coordinates (benchmarks/fig10_dynamic.py:25-31,60-66): 16
+    shards, 8192 keys prefilled.  MULTIQ, then the spray once the deletes
+    stop."""
+    cfg = dict(num_shards=16, capacity=1 << 15, npods=2, decision_interval=2)
+    jpq = JPQ(JCfg(**cfg), tree=trees[0])
+    tpq = TPQ(TCfg(**cfg), tree=trees[1], device="cpu")
+    phases = TT.TABLE2["c_mix"]
+    trace = TT.phased_trace(phases, steps_per_phase=6, seed=0)
+    keys = np.random.default_rng(0).integers(
+        0, phases[0]["key_range"], 8192).astype(np.int32)
+    vals = np.zeros_like(keys)
+    jc = jpq.init()
+    jc = jc._replace(state=JT.prefill(jc.state, keys, vals))
+    state = {f.name: np.asarray(getattr(jc.state, f.name))
+             for f in dataclasses.fields(jc.state)}
+    tc = tpq.init()._replace(state=convert.state_from_numpy(state, "cpu"))
+    window = (trace.ops, trace.keys, trace.vals, JT.trace_rngs(trace),
+              trace.num_clients)
+    _, _, tr = _run_both(jpq, tpq, jc, tc, window)
+    assert {0, 1} <= set(tr.mode.tolist()), tr.mode.tolist()
+
+
+def test_mode_steps_and_host_prediction_match_jax(trees):
+    """`make_mode_steps`: one step function per mode on one state, each
+    bit-identical to the JAX one; `predict_mode_host` agrees too."""
+    jpq, tpq = _pair(trees, THREE_MODE, head_width=64)
+    keys = np.random.default_rng(50).integers(0, 4096, 300).astype(np.int32)
+    jstate = JT.prefill(jpq.init().state, keys, keys % 97)
+    tstate = convert.state_from_numpy(
+        {f.name: np.asarray(getattr(jstate, f.name))
+         for f in dataclasses.fields(jstate)}, "cpu")
+    jsteps, tsteps = jpq.make_mode_steps(), tpq.make_mode_steps()
+    assert sorted(jsteps) == sorted(tsteps) == [0, 1, 2]
+    o, k, v, r, _ = _window(51, 0.3)
+    draws = tuple(d[0] for d in _draws(r[:1], 64))
+    for mode in (0, 1, 2):
+        jr = jsteps[mode](jax.tree.map(jnp.copy, jstate), jnp.asarray(o[0]),
+                          jnp.asarray(k[0]), jnp.asarray(v[0]), r[0])
+        tr = tsteps[mode](tstate, _t(o[0]), _t(k[0]), _t(v[0]), draws=draws)
+        _assert_equal(jr, tr, ("keys", "vals", "n_out"))
+        _assert_equal(jr.state, tr.state,
+                      [f.name for f in dataclasses.fields(jr.state)])
+    for point in ((64, 4000, 4096, 0.5), (16, 3000, 1 << 20, 0.6),
+                  (512, 100, 1 << 14, 0.95), (8, 1 << 16, 1 << 24, 0.1)):
+        assert tpq.predict_mode_host(*point) == jpq.predict_mode_host(*point)
