@@ -11,9 +11,11 @@ non-zero before its last line):
   2. kernels  each kernel against its plain PyTorch version on the card,
               bit-exact, at the kernel's validation shapes and at the shapes
               the main path gives it, with times of the kernel, the plain
-              version and one library call computing the same function: per
-              call as the host issues them (CUDA events), and on the card
-              alone (CUDA events around a replayed CUDA graph of the calls);
+              version and one library call computing the same function on
+              inputs packed into int64 words beforehand (and, beside it, the
+              same call with the packing inside it): per call as the
+              host issues them (CUDA events), and on the card alone (CUDA
+              events around a replayed CUDA graph of the calls);
   3. path A   the adaptive 2-mode SmartPQ (SPRAY_HERLIHY / HIER) fused window
               at the fig9 ins0 coordinates (S=16, C=1<<14, B=K=64, 4096 keys
               prefilled), 8 windows, each on a carry freshly prefilled through
@@ -139,6 +141,16 @@ TOPK_SHAPES = [
     ((1, 1424, 64), "main: SPRAY tournament"),
     ((2, 512, 64), "main: HIER pod semifinal"),
     ((1, 128, 64), "main: HIER final"),
+    ((1, 1312, 57), "main: path C Fig. 11 SPRAY"),
+    ((2, 456, 57), "main: path C Fig. 11 HIER semifinal"),
+    ((1, 114, 57), "main: path C Fig. 11 HIER final"),
+    ((1, 752, 22), "main: path C Fig. 10 c_mix SPRAY"),
+    ((2, 176, 22), "main: path C Fig. 10 c_mix HIER semifinal"),
+    ((1, 44, 22), "main: path C Fig. 10 c_mix HIER final"),
+    ((16, 4096, 64), "registry tuning shape"),
+    ((1, 1024, 64), "registry tuning shape"),
+    ((1, 512, 64), "registry tuning shape"),
+    ((2, 2048, 300), "run wider than registers (k' = 512)"),
 ]
 ELIM_SHAPES = [
     ((1, 16), "validation"), ((4, 64), "validation"),
@@ -227,9 +239,12 @@ def check_kernels(seed: int = 0):
     KO.reset_launches()
 
     def run_case(name, shape, label, args, kernel, plain, library, nbytes,
-                 ops):
-        """`library` is one PyTorch call computing the same function, or
-        None where there is none."""
+                 ops, packed=None):
+        """`library` is one PyTorch call computing the same function on
+        inputs prepared outside it (a closure of no arguments), or None
+        where there is none; `packed` (of the kernel's arguments) is the
+        same call with the int64 packing of its inputs inside, an earlier
+        yardstick that also timed the packing."""
         got = kernel(*args)
         want = plain(*args)
         got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
@@ -245,21 +260,25 @@ def check_kernels(seed: int = 0):
         match = err == 0
         k_ms = cuda_ms(lambda: kernel(*args))
         p_ms = cuda_ms(lambda: plain(*args))
-        l_ms = cuda_ms(lambda: library(*args)) if library else None
+        l_ms = cuda_ms(library) if library else None
+        q_ms = cuda_ms(lambda: packed(*args)) if packed else None
         kd_ms = graph_ms(lambda: kernel(*args))
         pd_ms = graph_ms(lambda: plain(*args))
-        ld_ms = graph_ms(lambda: library(*args)) if library else None
+        ld_ms = graph_ms(library) if library else None
+        qd_ms = graph_ms(lambda: packed(*args)) if packed else None
         b_ms, b_by = _bound(nbytes, ops)
         rec = {"shape": list(shape), "label": label, "match": match,
                "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                "library_ms": l_ms, "device_ms": kd_ms,
                "plain_device_ms": pd_ms, "library_device_ms": ld_ms,
+               "library_packed_ms": q_ms, "library_packed_device_ms": qd_ms,
                "bound_ms": b_ms, "bound_by": b_by}
         records.setdefault(name, []).append(rec)
         log(f"  {name} {shape} [{label}] match={match} per call: kernel="
-            f"{_us(k_ms)} plain={_us(p_ms)} library={_us(l_ms)} | device "
-            f"(graph): kernel={_us(kd_ms)} plain={_us(pd_ms)} library="
-            f"{_us(ld_ms)} | bound={b_ms*1e3:.3f}us ({b_by})")
+            f"{_us(k_ms)} plain={_us(p_ms)} library={_us(l_ms)} (packing "
+            f"inside {_us(q_ms)}) | device (graph): kernel={_us(kd_ms)} "
+            f"plain={_us(pd_ms)} library={_us(ld_ms)} (packing inside "
+            f"{_us(qd_ms)}) | bound={b_ms*1e3:.3f}us ({b_by})")
         if not match:
             raise AssertionError(f"{name} {shape}: kernel disagrees with its "
                                  f"plain version (max abs err {err})")
@@ -270,24 +289,30 @@ def check_kernels(seed: int = 0):
             keys[rng.random((R, N)) < 0.5] = INF_KEY
         vals = np.tile(np.arange(N, dtype=np.int32), (R, 1))
         args = (t(keys), t(vals), k)
+        words = KR.lex_pack(*args[:2])
         run_case(
             "topk_smallest", (R, N, k), label, args, KO.topk_smallest,
             KR.topk_smallest_ref,
-            lambda a, b, kk: torch.topk(KR.lex_pack(a, b), kk, dim=1,
-                                        largest=False, sorted=True),
+            lambda w=words, kk=min(k, N): torch.topk(
+                w, kk, dim=1, largest=False, sorted=True),
             4 * (2 * R * N + 2 * R * min(k, N)),
             R * N * (_log2(k) + 1),
+            packed=lambda a, b, kk: torch.topk(
+                KR.lex_pack(a, b), min(kk, b.shape[1]), dim=1, largest=False,
+                sorted=True),
         )
     for (R, B), label in ELIM_SHAPES:
         keys = rng.integers(0, 64, (R, B)).astype(np.int32)
         keys[rng.random((R, B)) < 0.3] = INF_KEY
         tags = np.tile(np.arange(B, dtype=np.int32), (R, 1))
         lg = _log2(B)
+        args = (t(keys), t(tags))
         run_case(
-            "elim_sort", (R, B), label, (t(keys), t(tags)), KO.elim_sort,
-            KR.elim_sort_ref,
-            lambda a, b: torch.sort(KR.lex_pack(a, b), dim=1, stable=True),
+            "elim_sort", (R, B), label, args, KO.elim_sort, KR.elim_sort_ref,
+            lambda w=KR.lex_pack(*args): torch.sort(w, dim=1, stable=True),
             4 * 4 * R * B, R * (B / 2) * lg * (lg + 1) / 2,
+            packed=lambda a, b: torch.sort(KR.lex_pack(a, b), dim=1,
+                                           stable=True),
         )
     for (S, H, Rw), label in MERGE_SHAPES:
         head_k = _sorted_rows(rng, S, H)
@@ -301,14 +326,17 @@ def check_kernels(seed: int = 0):
         W = H + Rw
         tags = torch.arange(W, dtype=torch.int32, device=dev).expand(S, W)
 
-        def library(hk, hv, hq, rk, rv, rq, _tags=tags):
+        def packed(hk, hv, hq, rk, rv, rq, _tags=tags):
             cat = torch.cat([hk, rk], dim=1)
             return torch.sort(KR.lex_pack(cat, _tags), dim=1, stable=True)
 
+        words = KR.lex_pack(torch.cat([args[0], args[3]], dim=1), tags)
         run_case(
             "windowed_merge", (S, H, Rw), label, args, KO.windowed_merge,
-            KR.windowed_merge_ref, library,
+            KR.windowed_merge_ref,
+            lambda w=words: torch.sort(w, dim=1, stable=True),
             4 * (3 * S * W + 3 * S * W), S * (W / 2) * _log2(W),
+            packed=packed,
         )
     # The MULTIQ kernels read the (S, H=256) head tier in place, as on the
     # main path: `mins` is its column 0, the windows its first m columns.
@@ -346,16 +374,20 @@ def check_kernels(seed: int = 0):
         buf_v = np.tile(np.arange(C, dtype=np.int32), (S, 1))
         run_v = (1 << 20) + np.tile(np.arange(Rw, dtype=np.int32), (S, 1))
 
-        def library(bk, bv, rk, rv):
+        def packed(bk, bv, rk, rv):
             return torch.sort(KR.lex_pack(torch.cat([bk, rk], dim=1),
                                           torch.cat([bv, rv], dim=1)),
                               dim=1, stable=True)
 
+        args = tuple(t(x) for x in (buf_k, buf_v, run_k, run_v))
+        words = KR.lex_pack(torch.cat([args[0], args[2]], dim=1),
+                            torch.cat([args[1], args[3]], dim=1))
         run_case(
-            "merge_sorted", (S, C, Rw), label,
-            tuple(t(x) for x in (buf_k, buf_v, run_k, run_v)),
-            KO.merge_sorted_runs, KR.merge_sorted_runs_ref, library,
+            "merge_sorted", (S, C, Rw), label, args, KO.merge_sorted_runs,
+            KR.merge_sorted_runs_ref,
+            lambda w=words: torch.sort(w, dim=1, stable=True),
             4 * (2 * S * C + 2 * S * Rw + 2 * S * C), S * C * _log2(2 * C),
+            packed=packed,
         )
     return records, dict(KO.LAUNCHES)
 
@@ -851,6 +883,8 @@ def kernels_line(records, paths, phase2):
             "device_ms": main["device_ms"],
             "plain_device_ms": main["plain_device_ms"],
             "library_device_ms": main["library_device_ms"],
+            "library_packed_ms": main["library_packed_ms"],
+            "library_packed_device_ms": main["library_packed_device_ms"],
             "shape": main["shape"],
             "shapes": records[name],
         }

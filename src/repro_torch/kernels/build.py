@@ -35,8 +35,9 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# What the last build did: seconds, output directory, nvcc's messages (the
-# -Xptxas -v register and shared-memory report) per source.
+# What the last build that compiled anything did: seconds, output directory,
+# nvcc's messages (the -Xptxas -v register and shared-memory report) per
+# source.
 BUILD_INFO: Dict[str, object] = {}
 
 
@@ -86,6 +87,9 @@ def build_all() -> Path:
         procs.append((name, tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
+    if not procs:
+        BUILD_INFO.setdefault("dir", str(out))
+        return out
     logs: Dict[str, str] = {}
     failed = []
     for name, tmp, lib, proc in procs:

@@ -2,8 +2,8 @@
 //
 // CUDA counterpart of the network primitives in
 // src/repro/kernels/bitonic_topk.py (`_cmp_exchange_asc`, `clean_bitonic`,
-// `bitonic_sort`, `bitonic_merge_topk`).  Every kernel of this package keeps one row in shared
-// memory as packed words
+// `bitonic_sort`).  The network kernels of this package keep a row in
+// shared memory or registers as packed words
 //
 //     ((uint32)(key ^ 0x80000000) << 32) | (uint32)(tag ^ 0x80000000)
 //
@@ -12,10 +12,9 @@
 // pad word (INT32_MAX, INT32_MAX) packs to all ones: the largest word, so
 // pads sort behind every real (key, tag) pair.
 //
-// One thread block owns one row (or, in `multiq_select`, one whole batch);
-// `n` is a power of two and the block's
+// One thread block owns one row; `n` is a power of two and the block's
 // threads stride over the n/2 compare-exchange pairs of each stage, with a
-// barrier between stages.
+// barrier between stages.  `warp_bitonic.cuh` has the warp-level networks.
 #pragma once
 
 #include <climits>
@@ -77,42 +76,6 @@ __device__ __forceinline__ void cta_bitonic_sort(word_t* s, int n) {
         if ((a > b) == ascending) {
           s[lo] = b;
           s[lo + j] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// Fold n_runs ascending k-runs s[r k, (r + 1) k) into run 0, which then
-// holds the k smallest words of all runs, ascending (n_runs and k powers of
-// two).  Each of the log2(n_runs) levels pairs run r with run r + h (h the
-// level's run stride) and keeps the k smallest of the two as the
-// `bitonic_merge_topk` step does (src/repro/kernels/bitonic_topk.py:97):
-// the elementwise min of run r and run r + h reversed is a bitonic sequence
-// that holds those k words, and a clean merge of k words sorts it.  All
-// pairs of a level run at once.  The caller has synchronised after writing
-// s.
-__device__ __forceinline__ void cta_fold_topk_runs(word_t* s, int n_runs,
-                                                   int k) {
-  const int half = k >> 1;
-  for (int h = 1; h < n_runs; h <<= 1) {
-    const int pairs = n_runs / (2 * h);
-    for (int i = threadIdx.x; i < pairs * k; i += blockDim.x) {
-      word_t* a = s + (size_t)(2 * h * (i / k)) * k;
-      const int e = i % k;
-      word_t w = a[(size_t)h * k + (k - 1 - e)];
-      if (w < a[e]) a[e] = w;
-    }
-    __syncthreads();
-    for (int j = half; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < pairs * half; i += blockDim.x) {
-        word_t* a = s + (size_t)(2 * h * (i / half)) * k;
-        const int lo = pair_lo(i % half, j);
-        word_t x = a[lo], y = a[lo + j];
-        if (x > y) {
-          a[lo] = y;
-          a[lo + j] = x;
         }
       }
       __syncthreads();

@@ -26,10 +26,19 @@ INF_KEY = 2**31 - 1
 MERGE = [(4, 64, 16), (2, 256, 7), (6, 100, 60), (3, 8, 8), (16, 256, 64),
          (16, 256, 4096)]
 TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
-        (1, 1424, 64), (2, 512, 64), (1, 128, 64)]
+        (1, 1424, 64), (2, 512, 64), (1, 128, 64),
+        # path C's lane widths B = 57 and 22 (SPRAY, HIER semifinal, final)
+        (1, 1312, 57), (2, 456, 57), (1, 114, 57),
+        (1, 752, 22), (2, 176, 22), (1, 44, 22),
+        # the registry's tuning shapes; the widest run in registers (k' =
+        # 256) and one too wide for them
+        (16, 4096, 64), (1, 1024, 64), (1, 512, 64), (3, 1000, 200),
+        (2, 2048, 300)]
 SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64)]
 TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57)]
-MULTIQ = [(4, 16), (16, 64), (2, 8), (16, 57)]
+MULTIQ = [(4, 16), (16, 64), (2, 8), (16, 57), (16, 22),
+          # runs of 128 and 256 words in registers
+          (4, 100), (3, 200)]
 MERGE_SORTED = [(4, 64, 16), (2, 256, 7), (1, 64, 1), (8, 1024, 128)]
 
 
@@ -85,6 +94,45 @@ def test_topk_smallest_kernel_matches_plain(R, N, k, inf_share):
     _check("topk_smallest", args, KR.topk_smallest_ref, k=k)
 
 
+def _topk_edge_rows(case, rng):
+    """(keys, k) of the rows the deleteMin tournaments give the kernel, and
+    of the edges of its chunking."""
+    if case == "spray_inf_holes":
+        # 16 ascending shard windows of 89 keys, most lanes masked to INF
+        # (the SPRAY core's removed-lane window)
+        keys = np.sort(rng.integers(0, 500, (16, 89)), axis=1)
+        keys[rng.random((16, 89)) < 0.8] = INF_KEY
+        return keys.reshape(1, -1).astype(np.int32), 64
+    if case == "hier_runs":
+        # two pods of 8 ascending 64-key runs, INF-padded (the semifinal)
+        return _sorted_rows(rng, 16, 64).reshape(2, 512), 64
+    if case == "all_inf":
+        return np.full((3, 300), INF_KEY, np.int32), 64
+    if case == "n_below_warp":
+        return rng.integers(0, 9, (3, 17)).astype(np.int32), 5
+    if case == "n_ragged":
+        return rng.integers(0, 50, (2, 1000)).astype(np.int32), 57
+    if case == "k_above_n":
+        return rng.integers(0, 50, (2, 40)).astype(np.int32), 100
+    if case == "k_widest":
+        # k' = 4096: runs in shared memory, three warps, three chunks
+        return rng.integers(0, 1 << 12, (1, 9000)).astype(np.int32), 3000
+    raise ValueError(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["spray_inf_holes", "hier_runs", "all_inf",
+                                  "n_below_warp", "n_ragged", "k_above_n",
+                                  "k_widest"])
+def test_topk_smallest_edge_rows_match_plain(case):
+    dev = _card()
+    keys, k = _topk_edge_rows(case, np.random.default_rng(7))
+    R, N = keys.shape
+    tags = np.tile(np.arange(N, dtype=np.int32), (R, 1))
+    args = [torch.as_tensor(a, device=dev) for a in (keys, tags)]
+    _check("topk_smallest", args, KR.topk_smallest_ref, k=k)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("R,B", SORT)
 def test_elim_sort_kernel_matches_plain(R, B):
@@ -131,6 +179,35 @@ def test_multiq_select_kernel_matches_plain(S, m):
     head_k = _sorted_rows(rng, S, 256)
     head_v = rng.integers(0, 1 << 20, (S, 256)).astype(np.int32)
     take = rng.integers(0, m + 1, S).astype(np.int32)
+    args = (torch.as_tensor(head_k, device=dev)[:, :m],
+            torch.as_tensor(head_v, device=dev)[:, :m],
+            torch.as_tensor(take, device=dev))
+    _check("multiq_select", args, KR.multiq_select_ref,
+           wrapper="multiq_select_topm")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["shards_12", "takes_0", "takes_m",
+                                  "popped_inf", "m_1", "shards_40",
+                                  "m_300"])
+def test_multiq_select_edge_cases_match_plain(case):
+    """S not a power of two, nothing popped, every window popped whole,
+    INF keys inside the take-prefixes, one lane, more shards than a block
+    has warps, windows too wide for registers."""
+    dev = _card()
+    rng = np.random.default_rng(11)
+    S, m = {"shards_12": (12, 57), "m_1": (16, 1), "shards_40": (40, 57),
+            "m_300": (4, 300)}.get(case, (16, 57))
+    H = max(256, m)
+    head_k = _sorted_rows(rng, S, H)
+    head_v = rng.integers(0, 1 << 20, (S, H)).astype(np.int32)
+    take = rng.integers(0, m + 1, S).astype(np.int32)
+    if case == "takes_0":
+        take[:] = 0
+    elif case in ("takes_m", "popped_inf"):
+        take[:] = m
+    if case == "popped_inf":
+        head_k[:, m // 3:] = INF_KEY
     args = (torch.as_tensor(head_k, device=dev)[:, :m],
             torch.as_tensor(head_v, device=dev)[:, :m],
             torch.as_tensor(take, device=dev))

@@ -29,17 +29,23 @@ PALLAS_ARM = {"twochoice_counts": "interpret",
               "multiq_select_topm": "interpret"}
 
 # (kernel, coords): the registry's validation shapes, then the main path's
-# ((16, 64) is a validation shape of both MULTIQ kernels; m = 57 is the
-# lane width of the paper's Fig. 11 trace; (8, 1024, 128) is
-# merge_sorted's tuning shape, it has no main-path shape)
+# ((16, 64) is a validation shape of both MULTIQ kernels; 57 and 22 are the
+# lane widths of the paper's Fig. 11 and Fig. 10 c_mix traces; top-k also
+# takes the registry's tuning shapes and a k' = 512 run, wider than the
+# CUDA kernel keeps in registers; (8, 1024, 128) is merge_sorted's tuning
+# shape, it has no main-path shape)
 MAIN_SHAPES = {
     "windowed_merge": ({"S": 16, "H": 256, "R": 64},),
-    "topk_smallest": ({"R": 1, "N": 1424, "k": 64, "dtype": "int32"},
-                      {"R": 2, "N": 512, "k": 64, "dtype": "int32"},
-                      {"R": 1, "N": 128, "k": 64, "dtype": "int32"}),
+    "topk_smallest": tuple(
+        {"R": R, "N": N, "k": k, "dtype": "int32"} for R, N, k in (
+            (1, 1424, 64), (2, 512, 64), (1, 128, 64),
+            (1, 1312, 57), (2, 456, 57), (1, 114, 57),
+            (1, 752, 22), (2, 176, 22), (1, 44, 22),
+            (16, 4096, 64), (1, 1024, 64), (1, 512, 64),
+            (2, 2048, 300))),
     "elim_sort": ({"R": 64, "B": 64},),
     "twochoice_counts": ({"S": 16, "m": 57},),
-    "multiq_select_topm": ({"S": 16, "m": 57},),
+    "multiq_select_topm": ({"S": 16, "m": 57}, {"S": 16, "m": 22}),
     "merge_sorted_runs": ({"S": 8, "C": 1024, "R": 128},),
 }
 CASES = [
