@@ -15,7 +15,10 @@ non-zero before its last line):
               inputs packed into int64 words beforehand (and, beside it, the
               same call with the packing inside it): per call as the
               host issues them (CUDA events), and on the card alone (CUDA
-              events around a replayed CUDA graph of the calls);
+              events around a replayed CUDA graph of the calls); and the
+              launch floor, the same two times of one elementwise PyTorch
+              op on a one-element tensor (`x.add_(1)`), the least a launch
+              costs;
   3. path A   the adaptive 2-mode SmartPQ (SPRAY_HERLIHY / HIER) fused window
               at the fig9 ins0 coordinates (S=16, C=1<<14, B=K=64, 4096 keys
               prefilled), 8 windows, each on a carry freshly prefilled through
@@ -56,7 +59,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -71,62 +73,6 @@ INF_KEY = 2**31 - 1
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Time per call as the host issues it: CUDA events around `iters`
-    back-to-back calls.  Where the host issues calls more slowly than the
-    card runs them, this is the host's rate, not the card's."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
-    """Device time of one call: `iters` calls captured in one CUDA graph and
-    replayed `replays` times between CUDA events, so the host's cost of
-    issuing each call (Python, the wrapper, the launch) drops out."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (iters * replays)
 
 
 # ---------------------------------------------------------------------------
@@ -161,6 +107,8 @@ MERGE_SHAPES = [
     ((4, 64, 16), "validation"), ((2, 256, 7), "validation"),
     ((6, 100, 60), "validation"), ((3, 8, 8), "validation"),
     ((16, 256, 64), "main: step insert"),
+    ((16, 256, 57), "main: path C Fig. 11 step insert"),
+    ((16, 256, 22), "main: path C Fig. 10 c_mix step insert"),
     ((16, 256, 4096), "main: prefill insert"),
 ]
 # (S, m): validation shapes (src/repro/kernels/registry.py:516-533), then
@@ -231,6 +179,7 @@ def check_kernels(seed: int = 0):
 
     from repro_torch.kernels import ops as KO
     from repro_torch.kernels import ref as KR
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed)
@@ -331,11 +280,18 @@ def check_kernels(seed: int = 0):
             return torch.sort(KR.lex_pack(cat, _tags), dim=1, stable=True)
 
         words = KR.lex_pack(torch.cat([args[0], args[3]], dim=1), tags)
+        # bytes: every key read, the val and seq of each live (non-INF)
+        # input word (an INF word's are written as 0), three outputs.
+        # Operations: the rank merge's compares, a binary search of each
+        # head word in its run and of each live run word in its head.
+        live_head = int((head_k != INF_KEY).sum())
+        live_run = int((run_k != INF_KEY).sum())
         run_case(
             "windowed_merge", (S, H, Rw), label, args, KO.windowed_merge,
             KR.windowed_merge_ref,
             lambda w=words: torch.sort(w, dim=1, stable=True),
-            4 * (3 * S * W + 3 * S * W), S * (W / 2) * _log2(W),
+            4 * (S * W + 2 * (live_head + live_run) + 3 * S * W),
+            S * H * _log2(Rw + 1) + live_run * _log2(H + 1),
             packed=packed,
         )
     # The MULTIQ kernels read the (S, H=256) head tier in place, as on the
@@ -390,6 +346,22 @@ def check_kernels(seed: int = 0):
             packed=packed,
         )
     return records, dict(KO.LAUNCHES)
+
+
+def launch_floor():
+    """(device ms, per-call ms) of one elementwise PyTorch op on a
+    one-element int32 tensor, timed as the kernels are: what a launch costs
+    with no work in it."""
+    import torch
+
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
+
+    x = torch.zeros(1, dtype=torch.int32, device="cuda")
+    per_call = cuda_ms(lambda: x.add_(1))
+    device = graph_ms(lambda: x.add_(1))
+    log(f"  launch floor: x.add_(1) on one int32 per call={_us(per_call)} | "
+        f"device (graph)={_us(device)}")
+    return device, per_call
 
 
 # ---------------------------------------------------------------------------
@@ -858,10 +830,11 @@ def path_d(carry, size, seed: int = 0):
 # ---------------------------------------------------------------------------
 
 
-def kernels_line(records, paths, phase2):
+def kernels_line(records, paths, phase2, floor):
     """`paths` maps a path's name to (launches, launches inside its
     windows, windows); `phase2` holds phase 2's launch counts, the
-    launches of a kernel with no caller on any path (`NO_CALLER`)."""
+    launches of a kernel with no caller on any path (`NO_CALLER`);
+    `floor` is the launch floor, (device ms, per-call ms)."""
     from repro_torch.kernels import build
 
     out = []
@@ -893,7 +866,8 @@ def kernels_line(records, paths, phase2):
             rec["launches_from"] = ("phase 2 (kernel vs plain): no caller on "
                                     "any path")
         out.append(rec)
-    return {"kernels": out}
+    return {"kernels": out, "launch_floor_device_ms": floor[0],
+            "launch_floor_ms": floor[1]}
 
 
 def main() -> int:
@@ -908,6 +882,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
+    from repro_torch.kernels.timing import card_line
 
     t_start = time.perf_counter()
     card = card_line()
@@ -926,6 +901,7 @@ def main() -> int:
 
     log("[2 kernels] kernel vs plain on the card")
     records, phase2 = check_kernels()
+    floor = launch_floor()
     path_a_counts, (pq_a, kept_a) = path_a()
     n = cpu_agreement("A", pq_a, kept_a)
     log(f"[4 cpu] path A windows 0-{n - 1} rerun on the CPU with the plain "
@@ -936,7 +912,7 @@ def main() -> int:
     log(f"[8 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
-        "D": path_d_counts}, phase2)))
+        "D": path_d_counts}, phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,11 +11,15 @@ repository root (listed in `.gitignore`), so a changed source builds anew
 and an unchanged one is reused.  All sources compile in parallel, one nvcc
 process each.  Nothing is compiled or imported when this module is imported;
 `load` is called by the kernel wrappers in `kernels.ops` at their first
-launch, and a failed build raises.
+launch, and a failed build raises.  `build_all` also builds another
+tree's sources into a directory of the caller's, and `use` routes a
+kernel's launches to such a build (`kernels.compare` times builds of
+several trees against each other that way).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -23,7 +27,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
@@ -55,10 +59,10 @@ def _nvcc() -> str:
     )
 
 
-def source_digest() -> str:
-    """Hash of every kernel source and the compiler flags."""
+def source_digest(csrc: Path = CSRC) -> str:
+    """Hash of every kernel source in `csrc` and the compiler flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sorted(CSRC.iterdir()):
+    for path in sorted(csrc.iterdir()):
         if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
@@ -69,21 +73,23 @@ def build_dir() -> Path:
     return REPO_ROOT / "build" / "repro_torch_kernels" / source_digest()
 
 
-def build_all() -> Path:
-    """Compile every source whose library is missing, all in parallel."""
-    out = build_dir()
+def build_all(csrc: Path = CSRC, out: Path | None = None,
+              names: Sequence[str] = SOURCES) -> Path:
+    """Compile every source of `names` in `csrc` whose library is missing
+    from `out` (default `build_dir()`), all in parallel."""
+    out = out or build_dir()
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs: List = []
     nvcc = None
-    for name in SOURCES:
+    for name in names:
         lib = out / f"{name}.so"
         if lib.exists():
             continue
         nvcc = nvcc or _nvcc()
         tmp = out / f"{name}.{os.getpid()}.tmp.so"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(csrc), "-o", str(tmp),
+               str(csrc / f"{name}.cu")]
         procs.append((name, tmp, lib, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )))
@@ -106,7 +112,9 @@ def build_all() -> Path:
     return out
 
 
-def _bind(name: str, lib: ctypes.CDLL) -> None:
+def bind(name: str, lib: ctypes.CDLL) -> None:
+    """Declare the C signatures of kernel `name`'s launch and error
+    functions in `lib`."""
     p, i = ctypes.c_void_p, ctypes.c_int
     sig = {
         "windowed_merge": [p] * 9 + [i, i, i, p],
@@ -131,6 +139,21 @@ def load(name: str) -> ctypes.CDLL:
         out = build_all()
         for src in SOURCES:
             lib = ctypes.CDLL(str(out / f"{src}.so"))
-            _bind(src, lib)
+            bind(src, lib)
             _LIBS[src] = lib
     return _LIBS[name]
+
+
+@contextlib.contextmanager
+def use(name: str, lib: ctypes.CDLL):
+    """Route the launches of kernel `name` to `lib`, a library of the same
+    C interface built from another source tree, inside the block."""
+    before = _LIBS.get(name)
+    _LIBS[name] = lib
+    try:
+        yield
+    finally:
+        if before is None:
+            del _LIBS[name]
+        else:
+            _LIBS[name] = before

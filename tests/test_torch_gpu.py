@@ -24,7 +24,8 @@ INF_KEY = 2**31 - 1
 # The JAX registry's validation shapes (src/repro/kernels/registry.py:481-557)
 # and the shapes the fused window gives each kernel.
 MERGE = [(4, 64, 16), (2, 256, 7), (6, 100, 60), (3, 8, 8), (16, 256, 64),
-         (16, 256, 4096)]
+         # path C's step inserts (R = B = 57 and 22), then the prefill
+         (16, 256, 57), (16, 256, 22), (16, 256, 4096)]
 TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         (1, 1424, 64), (2, 512, 64), (1, 128, 64),
         # path C's lane widths B = 57 and 22 (SPRAY, HIER semifinal, final)
@@ -35,7 +36,10 @@ TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         (16, 4096, 64), (1, 1024, 64), (1, 512, 64), (3, 1000, 200),
         (2, 2048, 300)]
 SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64)]
-TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57)]
+TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57), (16, 22),
+             # the warp with four rounds of deleter lanes, then more shards
+             # than a warp has lanes: the block body
+             (16, 128), (40, 100)]
 MULTIQ = [(4, 16), (16, 64), (2, 8), (16, 57), (16, 22),
           # runs of 128 and 256 words in registers
           (4, 100), (3, 200)]
@@ -72,6 +76,50 @@ def test_windowed_merge_kernel_matches_plain(S, H, R):
     dev = _card()
     rng = np.random.default_rng(S * H + R)
     head_k, run_k = _sorted_rows(rng, S, H), _sorted_rows(rng, S, R)
+    head_v = rng.integers(0, 1 << 20, (S, H)).astype(np.int32)
+    run_v = rng.integers(0, 1 << 20, (S, R)).astype(np.int32)
+    head_q = np.tile(np.arange(H, dtype=np.int32), (S, 1))
+    run_q = 1000 + np.tile(np.arange(R, dtype=np.int32), (S, 1))
+    args = [torch.as_tensor(a, device=dev) for a in
+            (head_k, head_v, head_q, run_k, run_v, run_q)]
+    _check("windowed_merge", args, KR.windowed_merge_ref)
+
+
+def _merge_edge_rows(case, rng):
+    """(head_k, run_k) of the rows at the edges of the rank merge."""
+    if case == "head_all_inf":
+        return np.full((4, 256), INF_KEY, np.int32), _sorted_rows(rng, 4, 64)
+    if case == "run_all_inf":
+        return _sorted_rows(rng, 4, 256), np.full((4, 64), INF_KEY, np.int32)
+    if case == "both_all_inf":
+        return (np.full((2, 100), INF_KEY, np.int32),
+                np.full((2, 30), INF_KEY, np.int32))
+    if case == "head_empty":
+        return np.zeros((3, 0), np.int32), _sorted_rows(rng, 3, 300)
+    if case == "run_empty":
+        return _sorted_rows(rng, 3, 300), np.zeros((3, 0), np.int32)
+    if case == "equal_keys":
+        # few distinct keys, most of them in both rows: head before run
+        head = np.sort(rng.integers(0, 4, (5, 256)), axis=1).astype(np.int32)
+        run = np.sort(rng.integers(0, 4, (5, 64)), axis=1).astype(np.int32)
+        head[:, 200:] = INF_KEY
+        run[:, 50:] = INF_KEY
+        return head, run
+    if case == "rows_unaligned":
+        # H and R not multiples of 4: rows off 16-byte alignment
+        return _sorted_rows(rng, 5, 33), _sorted_rows(rng, 5, 131)
+    raise ValueError(case)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["head_all_inf", "run_all_inf",
+                                  "both_all_inf", "head_empty", "run_empty",
+                                  "equal_keys", "rows_unaligned"])
+def test_windowed_merge_edge_rows_match_plain(case):
+    dev = _card()
+    rng = np.random.default_rng(13)
+    head_k, run_k = _merge_edge_rows(case, rng)
+    (S, H), R = head_k.shape, run_k.shape[1]
     head_v = rng.integers(0, 1 << 20, (S, H)).astype(np.int32)
     run_v = rng.integers(0, 1 << 20, (S, R)).astype(np.int32)
     head_q = np.tile(np.arange(H, dtype=np.int32), (S, 1))

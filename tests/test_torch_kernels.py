@@ -30,12 +30,15 @@ PALLAS_ARM = {"twochoice_counts": "interpret",
 
 # (kernel, coords): the registry's validation shapes, then the main path's
 # ((16, 64) is a validation shape of both MULTIQ kernels; 57 and 22 are the
-# lane widths of the paper's Fig. 11 and Fig. 10 c_mix traces; top-k also
+# lane widths of the paper's Fig. 11 and Fig. 10 c_mix traces, and the run
+# widths of their step inserts (R = B through `route_dense`); top-k also
 # takes the registry's tuning shapes and a k' = 512 run, wider than the
 # CUDA kernel keeps in registers; (8, 1024, 128) is merge_sorted's tuning
 # shape, it has no main-path shape)
 MAIN_SHAPES = {
-    "windowed_merge": ({"S": 16, "H": 256, "R": 64},),
+    "windowed_merge": ({"S": 16, "H": 256, "R": 64},
+                       {"S": 16, "H": 256, "R": 57},
+                       {"S": 16, "H": 256, "R": 22}),
     "topk_smallest": tuple(
         {"R": R, "N": N, "k": k, "dtype": "int32"} for R, N, k in (
             (1, 1424, 64), (2, 512, 64), (1, 128, 64),
@@ -167,6 +170,16 @@ def test_windowed_merge_prefill_shape_matches_jax():
     for arm in ("ref", INTERPRET):
         _assert_same(_port("windowed_merge", args, kw),
                      JO.windowed_merge(*args, arm=arm))
+
+
+@pytest.mark.parametrize("R", [64, 57, 22, 4096])
+def test_windowed_merge_matches_jax_rank_arm(R):
+    """The JAX package's `rank` arm places each word at its index plus its
+    rank in the other row, the formulation of the CUDA kernel: the port's
+    plain version equals it at the step inserts and the prefill."""
+    args, kw = _inputs("windowed_merge", {"S": 16, "H": 256, "R": R})
+    _assert_same(_port("windowed_merge", args, kw),
+                 JO.windowed_merge(*args, arm="rank"))
 
 
 def test_cpu_wrappers_count_no_launch():
