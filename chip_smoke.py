@@ -102,6 +102,9 @@ ELIM_SHAPES = [
     ((1, 16), "validation"), ((4, 64), "validation"),
     ((6, 37), "validation"), ((8, 128), "validation"),
     ((64, 64), "main: window op log"),
+    ((84, 57), "main: path C Fig. 11 op log"),
+    ((30, 22), "main: path C Fig. 10 c_mix op log"),
+    ((2, 1000), "row wider than registers (B > 256): block body"),
 ]
 MERGE_SHAPES = [
     ((4, 64, 16), "validation"), ((2, 256, 7), "validation"),
@@ -123,11 +126,17 @@ MULTIQ_SHAPES = [
     ((2, 8), "validation"), ((16, 57), "main: path C Fig. 11 trace"),
     ((16, 22), "main: path C Fig. 10 c_mix trace"),
 ]
-# (S, C, R): validation shapes (registry.py:549-557) and the tuning shape
+# (S, C, R): validation shapes (registry.py:549-557), the tuning shape,
+# then rows holding equal (key, val) words across buffer and run (all vals
+# 0, keys in [0, 8)), R = C, and a C whose buffer fills 128 KB of shared
+# memory
+MERGE_DUPLICATES = "duplicate (key, val) words"
 MERGE_SORTED_SHAPES = [
     ((4, 64, 16), "validation"), ((2, 256, 7), "validation"),
     ((1, 64, 1), "validation"),
     ((8, 1024, 128), "registry tuning shape; no caller on any path"),
+    ((4, 256, 64), MERGE_DUPLICATES), ((2, 4096, 4096), "R = C"),
+    ((1, 16384, 4), "C = 16384, the widest row"),
 ]
 MAIN_SHAPE = {"topk_smallest": (1, 1424, 64), "elim_sort": (64, 64),
               "windowed_merge": (16, 256, 64), "twochoice_pick": (16, 57),
@@ -325,10 +334,17 @@ def check_kernels(seed: int = 0):
             4 * (S + popped.size + winners + 2 * m), S * m * _log2(m),
         )
     for (S, C, Rw), label in MERGE_SORTED_SHAPES:
-        buf_k = _sorted_rows(rng, S, C)
-        run_k = _sorted_rows(rng, S, Rw)
-        buf_v = np.tile(np.arange(C, dtype=np.int32), (S, 1))
-        run_v = (1 << 20) + np.tile(np.arange(Rw, dtype=np.int32), (S, 1))
+        if label == MERGE_DUPLICATES:
+            buf_k = _sorted_rows(rng, S, C, hi=8)
+            run_k = _sorted_rows(rng, S, Rw, hi=8)
+            buf_v = np.zeros((S, C), np.int32)
+            run_v = np.zeros((S, Rw), np.int32)
+        else:
+            buf_k = _sorted_rows(rng, S, C)
+            run_k = _sorted_rows(rng, S, Rw)
+            buf_v = np.tile(np.arange(C, dtype=np.int32), (S, 1))
+            run_v = (1 << 20) + np.tile(np.arange(Rw, dtype=np.int32),
+                                        (S, 1))
 
         def packed(bk, bv, rk, rv):
             return torch.sort(KR.lex_pack(torch.cat([bk, rk], dim=1),
@@ -338,11 +354,14 @@ def check_kernels(seed: int = 0):
         args = tuple(t(x) for x in (buf_k, buf_v, run_k, run_v))
         words = KR.lex_pack(torch.cat([args[0], args[2]], dim=1),
                             torch.cat([args[1], args[3]], dim=1))
+        # operations: the rank merge's compares, a binary search of each
+        # buffer word in its run and of each run word in its buffer
         run_case(
             "merge_sorted", (S, C, Rw), label, args, KO.merge_sorted_runs,
             KR.merge_sorted_runs_ref,
             lambda w=words: torch.sort(w, dim=1, stable=True),
-            4 * (2 * S * C + 2 * S * Rw + 2 * S * C), S * C * _log2(2 * C),
+            4 * (2 * S * C + 2 * S * Rw + 2 * S * C),
+            S * C * _log2(Rw + 1) + S * Rw * _log2(C + 1),
             packed=packed,
         )
     return records, dict(KO.LAUNCHES)

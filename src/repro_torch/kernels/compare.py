@@ -3,7 +3,7 @@ other on one card, in turns.
 
     PYTHONPATH=src python -m repro_torch.kernels.compare \\
         --tree parent=build/parent \\
-        --tree this=. [--kernels windowed_merge,twochoice_pick] \\
+        --tree this=. [--kernels elim_sort,merge_sorted] \\
         [--rounds 4] [--json build/compare.json]
 
 Each ``--tree NAME=ROOT`` names a checkout of this repository (relative
@@ -14,7 +14,8 @@ interface of this tree's wrappers (`kernels.ops`), which launch each
 tree's build in turn (`build.use`).  For every kernel and shape of
 `SHAPES` the script makes one input from ``--seed``, checks every tree's
 output against the plain version (bit-equal, or it exits 1 without
-timing), then reads each tree's device time (`timing.graph_ms`, as
+timing; a tree whose launcher refuses the shape is left out of that
+shape's timing), then reads each tree's device time (`timing.graph_ms`, as
 `chip_smoke.py`'s phase 2 does) ``--rounds`` times, the trees in order in
 even rounds and in reverse in odd ones (A B, B A, ...).  It prints every
 reading and each tree's median, in µs, with the card's name and power
@@ -39,6 +40,9 @@ from . import ref as KR
 from .timing import card_line, graph_ms
 
 INF_KEY = 2**31 - 1
+# The label of `merge_sorted`'s case whose rows hold equal (key, val) words
+# across buffer and run: all vals 0, keys in [0, 8).
+DUPLICATES = "duplicate (key, val) words"
 
 # (shape, label): the main path's shapes, then shapes off it
 SHAPES = {
@@ -55,6 +59,25 @@ SHAPES = {
         ((16, 128), "off the main path: m > 64"),
         ((40, 100), "off the main path: S > 32"),
     ],
+    "elim_sort": [
+        ((64, 64), "paths A, B, D op log"),
+        ((84, 57), "path C Fig. 11 op log"),
+        ((30, 22), "path C Fig. 10 c_mix op log"),
+        ((1, 16), "validation"),
+        ((4, 64), "validation"),
+        ((6, 37), "validation"),
+        ((8, 128), "validation"),
+        ((2, 1000), "off the main path: B > 256, block body"),
+    ],
+    "merge_sorted": [
+        ((8, 1024, 128), "tuning shape; no caller on any path"),
+        ((4, 64, 16), "validation"),
+        ((2, 256, 7), "validation"),
+        ((1, 64, 1), "validation"),
+        ((4, 256, 64), DUPLICATES),
+        ((2, 4096, 4096), "R = C"),
+        ((1, 16384, 4), "C = 16384, the widest row"),
+    ],
 }
 
 
@@ -68,7 +91,7 @@ def _sorted_rows(rng, S, W, hi=200):
     return out
 
 
-def _case(name, shape, rng, dev):
+def _case(name, shape, label, rng, dev):
     """(wrapper, its arguments, plain version) of one kernel at one shape,
     on inputs made as `chip_smoke.py`'s phase 2 makes them."""
     t = lambda a: torch.as_tensor(a, device=dev).contiguous()  # noqa: E731
@@ -92,6 +115,24 @@ def _case(name, shape, rng, dev):
         act = rng.random(m) < 0.8
         return KO.twochoice_counts, (t(head)[:, 0], t(a), t(b), t(act)), \
             KR.twochoice_counts_ref
+    if name == "elim_sort":
+        R, B = shape
+        keys = rng.integers(0, 64, (R, B)).astype(np.int32)
+        keys[rng.random((R, B)) < 0.3] = INF_KEY
+        tags = np.tile(np.arange(B, dtype=np.int32), (R, 1))
+        return KO.elim_sort, (t(keys), t(tags)), KR.elim_sort_ref
+    if name == "merge_sorted":
+        S, C, R = shape
+        if label == DUPLICATES:
+            args = (_sorted_rows(rng, S, C, hi=8), np.zeros((S, C), np.int32),
+                    _sorted_rows(rng, S, R, hi=8), np.zeros((S, R), np.int32))
+        else:
+            args = (_sorted_rows(rng, S, C),
+                    np.tile(np.arange(C, dtype=np.int32), (S, 1)),
+                    _sorted_rows(rng, S, R),
+                    (1 << 20) + np.tile(np.arange(R, dtype=np.int32), (S, 1)))
+        return KO.merge_sorted_runs, tuple(t(a) for a in args), \
+            KR.merge_sorted_runs_ref
     raise ValueError(f"compare: no inputs for kernel {name!r}")
 
 
@@ -138,18 +179,27 @@ def main(argv=None) -> int:
     result = {"card": card, "trees": [t for t, _ in trees], "rows": []}
     for name in names:
         for shape, label in SHAPES[name]:
-            kernel, kargs, plain = _case(name, shape, rng, dev)
+            kernel, kargs, plain = _case(name, shape, label, rng, dev)
             want = plain(*kargs)
-            for tag, _ in trees:
+            timed = []
+            for tree in trees:
+                tag = tree[0]
                 with build.use(name, libs[tag, name]):
-                    if not _same(kernel(*kargs), want):
+                    try:
+                        got = kernel(*kargs)
+                    except RuntimeError as e:  # the launcher refused it
+                        print(f"  {name} {shape} [{label}] tree {tag}: {e}",
+                              flush=True)
+                        continue
+                    if not _same(got, want):
                         print(f"compare: {name} {shape} of tree {tag} "
                               f"disagrees with its plain version",
                               file=sys.stderr)
                         return 1
-            reads = {tag: [] for tag, _ in trees}
+                timed.append(tree)
+            reads = {tag: [] for tag, _ in timed}
             for r in range(args.rounds):
-                order = trees if r % 2 == 0 else trees[::-1]
+                order = timed if r % 2 == 0 else timed[::-1]
                 for tag, _ in order:
                     with build.use(name, libs[tag, name]):
                         reads[tag].append(graph_ms(lambda: kernel(*kargs)))

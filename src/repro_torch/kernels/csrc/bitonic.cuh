@@ -1,9 +1,9 @@
 // Shared-memory bitonic networks on packed 64-bit (key, tag) words.
 //
 // CUDA counterpart of the network primitives in
-// src/repro/kernels/bitonic_topk.py (`_cmp_exchange_asc`, `clean_bitonic`,
-// `bitonic_sort`).  The network kernels of this package keep a row in
-// shared memory or registers as packed words
+// src/repro/kernels/bitonic_topk.py (`_cmp_exchange_asc`, `bitonic_sort`;
+// `warp_bitonic.cuh` has `clean_bitonic`).  The network kernels of this
+// package keep a row in shared memory or registers as packed words
 //
 //     ((uint32)(key ^ 0x80000000) << 32) | (uint32)(tag ^ 0x80000000)
 //
@@ -15,6 +15,8 @@
 // One thread block owns one row; `n` is a power of two and the block's
 // threads stride over the n/2 compare-exchange pairs of each stage, with a
 // barrier between stages.  `warp_bitonic.cuh` has the warp-level networks.
+// The rank merges (`windowed_merge.cu`, `merge_sorted.cu`) run no network
+// and take only the words, `rank_in` and `allow_smem` from here.
 #pragma once
 
 #include <climits>
@@ -47,22 +49,6 @@ __device__ __forceinline__ int pair_lo(int i, int j) {
   return ((i & ~(j - 1)) << 1) | (i & (j - 1));
 }
 
-// Sort a bitonic sequence s[0, n) ascending: log2(n) ascending stages
-// (`clean_bitonic`).  The caller has synchronised after writing s.
-__device__ __forceinline__ void cta_bitonic_clean(word_t* s, int n) {
-  for (int j = n >> 1; j > 0; j >>= 1) {
-    for (int i = threadIdx.x; i < (n >> 1); i += blockDim.x) {
-      int lo = pair_lo(i, j);
-      word_t a = s[lo], b = s[lo + j];
-      if (a > b) {
-        s[lo] = b;
-        s[lo + j] = a;
-      }
-    }
-    __syncthreads();
-  }
-}
-
 // Full ascending sort of s[0, n) (`bitonic_sort`): the classic network with
 // the stage direction taken from bit k of the lower index.  The caller has
 // synchronised after writing s.
@@ -81,6 +67,23 @@ __device__ __forceinline__ void cta_bitonic_sort(word_t* s, int n) {
       __syncthreads();
     }
   }
+}
+
+// #{s[0, n) < x} (`strict`) or #{s[0, n) <= x}, s ascending (int keys or
+// packed words): a binary search by descending powers of two, the same
+// trip count on every lane.
+template <typename T>
+__device__ __forceinline__ int rank_in(const T* __restrict__ s, int n, T x,
+                                       bool strict) {
+  int lo = 0;
+  for (int step = n ? 1 << (31 - __clz(n)) : 0; step > 0; step >>= 1) {
+    const int j = lo + step;
+    if (j <= n) {
+      const T y = s[j - 1];
+      if (strict ? y < x : y <= x) lo = j;
+    }
+  }
+  return lo;
 }
 
 inline int next_pow2(int n) {

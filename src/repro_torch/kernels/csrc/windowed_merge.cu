@@ -50,7 +50,7 @@
 #include <climits>
 #include <cstdint>
 
-#include "bitonic.cuh"  // allow_smem; this kernel runs no network
+#include "bitonic.cuh"  // rank_in, allow_smem; this kernel runs no network
 
 using namespace repro_torch;
 
@@ -88,21 +88,6 @@ __device__ __forceinline__ void stage_row(int* __restrict__ dst,
     done = n & ~3;
   }
   for (int i = done + threadIdx.x; i < n; i += blockDim.x) dst[i] = src[i];
-}
-
-// #{s[0, n) < key} (`strict`) or #{s[0, n) <= key}, s ascending: a binary
-// search by descending powers of two, the same trip count on every lane.
-__device__ __forceinline__ int rank_in(const int* __restrict__ s, int n,
-                                       int key, bool strict) {
-  int lo = 0;
-  for (int step = n ? 1 << (31 - __clz(n)) : 0; step > 0; step >>= 1) {
-    const int j = lo + step;
-    if (j <= n) {
-      const int x = s[j - 1];
-      if (strict ? x < key : x <= key) lo = j;
-    }
-  }
-  return lo;
 }
 
 __global__ void __launch_bounds__(kThreads)

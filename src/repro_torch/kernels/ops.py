@@ -10,12 +10,14 @@ one to the other.
 
 Padding happens inside the kernels, not in extra tensors: `topk_smallest`
 treats each row as padded to a multiple of the power-of-two k' >= k, and
-`elim_sort` pads B to a power of two with (INF, INT32_MAX).
-`multiq_select_topm` pads m to a power of two and `merge_sorted_runs` pads
-the run to C, both with (INF, INT32_MAX).  `windowed_merge` pads nothing:
-it is a rank merge, each word written at its index plus its rank in the
-other row.  It and `multiq_select_topm` also do the gather that follows the
-Pallas kernel (the payloads, zeroed on INF lanes) in the kernel.
+`elim_sort` pads B to a power of two (at least 32) with (INF, INT32_MAX).
+`multiq_select_topm` pads m to a power of two with (INF, INT32_MAX).
+`windowed_merge` and `merge_sorted_runs` pad nothing: they are rank
+merges, each word written at its index plus its rank in the other row
+(`merge_sorted_runs`'s run pads, (INF, INT32_MAX) up to C, would all land
+past C).  `windowed_merge` and `multiq_select_topm` also do the gather
+that follows the Pallas kernel (the payloads, zeroed on INF lanes) in the
+kernel.
 
 Most kernels take contiguous 2-D tensors.  The two MULTIQ kernels read the
 head tier in place: `twochoice_counts` takes 1-D tensors of any stride (its

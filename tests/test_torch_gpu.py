@@ -35,7 +35,12 @@ TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         # 256) and one too wide for them
         (16, 4096, 64), (1, 1024, 64), (1, 512, 64), (3, 1000, 200),
         (2, 2048, 300)]
-SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64)]
+SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64),
+        # path C's op logs (Fig. 11 Table 3, Fig. 10 c_mix); rows of 32 and
+        # 256 words, the narrowest and widest register runs, and of 33, the
+        # first with two words a lane; a row count that leaves a block's
+        # last warps idle; rows too wide for registers (the block body)
+        (84, 57), (30, 22), (5, 32), (3, 256), (7, 33), (2, 1000)]
 TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57), (16, 22),
              # the warp with four rounds of deleter lanes, then more shards
              # than a warp has lanes: the block body
@@ -43,7 +48,10 @@ TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57), (16, 22),
 MULTIQ = [(4, 16), (16, 64), (2, 8), (16, 57), (16, 22),
           # runs of 128 and 256 words in registers
           (4, 100), (3, 200)]
-MERGE_SORTED = [(4, 64, 16), (2, 256, 7), (1, 64, 1), (8, 1024, 128)]
+MERGE_SORTED = [(4, 64, 16), (2, 256, 7), (1, 64, 1), (8, 1024, 128),
+                # R = C; a buffer of 16384 words (128 KB of shared memory
+                # in a run block); no run at all
+                (2, 4096, 4096), (1, 16384, 4), (3, 512, 0)]
 
 
 def _card():
@@ -194,6 +202,17 @@ def test_elim_sort_kernel_matches_plain(R, B):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [22, 57, 64, 300])
+def test_elim_sort_all_inf_rows_match_plain(B):
+    """Path A's log at ins0: every key INF, so the tags alone order it."""
+    dev = _card()
+    keys = torch.full((64, B), INF_KEY, dtype=torch.int32, device=dev)
+    tags = torch.arange(B, dtype=torch.int32, device=dev).flip(0)
+    _check("elim_sort", [keys, tags.expand(64, B).contiguous()],
+           KR.elim_sort_ref)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("S,m", TWOCHOICE)
 @pytest.mark.parametrize("tied", [False, True])
 def test_twochoice_kernel_matches_plain(S, m, tied):
@@ -278,9 +297,33 @@ def test_merge_sorted_kernel_matches_plain(S, C, R):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("case", ["duplicates", "inf_small_vals"])
+def test_merge_sorted_ties_match_plain(case):
+    """`duplicates`: all vals 0 and keys in [0, 8), so equal (key, val)
+    words stand in buffer and run.  `inf_small_vals`: INF-keyed run words
+    with vals below those of the buffer's INF-keyed words, which rank
+    before them."""
+    dev = _card()
+    rng = np.random.default_rng(7)
+    S, C, R = 4, 256, 64
+    buf_k, run_k = _sorted_rows(rng, S, C), _sorted_rows(rng, S, R)
+    if case == "duplicates":
+        buf_k, run_k = (np.sort(np.where(a == INF_KEY, a, a % 8), axis=1)
+                        for a in (buf_k, run_k))
+        buf_v, run_v = np.zeros((S, C), np.int32), np.zeros((S, R), np.int32)
+    else:
+        buf_v = np.where(buf_k == INF_KEY, 1000, 0).astype(np.int32)
+        run_v = np.where(run_k == INF_KEY, 5, 0).astype(np.int32)
+    args = [torch.as_tensor(a, device=dev) for a in
+            (buf_k, buf_v, run_k, run_v)]
+    _check("merge_sorted", args, KR.merge_sorted_runs_ref,
+           wrapper="merge_sorted_runs")
+
+
+@pytest.mark.gpu
 def test_merge_sorted_refuses_rows_above_shared_memory():
     dev = _card()
-    buf = torch.zeros((1, 1 << 14), dtype=torch.int32, device=dev)
+    buf = torch.zeros((1, 1 << 15), dtype=torch.int32, device=dev)
     run = torch.zeros((1, 4), dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="merge_sorted kernel launch"):
         KO.merge_sorted_runs(buf, buf, run, run)

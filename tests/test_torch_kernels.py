@@ -151,6 +151,39 @@ def test_merge_sorted_kernel_agrees_with_local_merge():
     np.testing.assert_array_equal(mk.numpy(), np.asarray(want[0]))
 
 
+@pytest.mark.parametrize("arm", ["ref", INTERPRET])
+@pytest.mark.parametrize("K,B,ins_frac", [(84, 57, 0.5), (30, 22, 0.5),
+                                          (64, 64, 0.0)],
+                         ids=["table3", "c_mix", "all_inf"])
+def test_elim_sort_op_logs_match_jax(arm, K, B, ins_frac):
+    """The op logs the window sorts (`local.sort_op_log`): path C's (Fig.
+    11 Table 3, Fig. 10 c_mix) with half the lanes inserting, and path A's
+    at ins0, where every key is INF and the tags alone order each row."""
+    rng = np.random.default_rng(K * B)
+    keys = rng.integers(0, 1 << 10, (K, B)).astype(np.int32)
+    keys[rng.random((K, B)) >= ins_frac] = INF_KEY
+    tags = np.tile(np.arange(B, dtype=np.int32), (K, 1))
+    got = TO.elim_sort(torch.as_tensor(keys), torch.as_tensor(tags))
+    _assert_same(got, JO.elim_sort(keys, tags, arm=arm))
+
+
+@pytest.mark.parametrize("arm", ["ref", INTERPRET])
+def test_merge_sorted_duplicate_words_match_jax(arm):
+    """All vals 0 and keys in [0, 8): equal (key, val) words stand in the
+    buffer and the run, and the INF-keyed ones of both are equal too."""
+    rng = np.random.default_rng(8)
+    S, C, R = 4, 256, 64
+    rows = []
+    for W in (C, R):
+        k = np.full((S, W), INF_KEY, np.int32)
+        for s in range(S):
+            n = rng.integers(0, W + 1)
+            k[s, :n] = np.sort(rng.integers(0, 8, n))
+        rows += [k, np.zeros((S, W), np.int32)]
+    got = TO.merge_sorted_runs(*(torch.as_tensor(a) for a in rows))
+    _assert_same(got, JO.merge_sorted_runs(*rows, arm=arm))
+
+
 def test_topk_inf_lanes_match_jax_path():
     """The spray tournament's candidates are mostly INF lanes; the port's
     plain version must order them by position like the JAX arms the fused
