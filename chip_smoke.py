@@ -41,13 +41,30 @@ non-zero before its last line):
   7. path D   MULTIQ at a capacity-sized queue: path B's final carry continued
               under the three-mode config for 2 windows (B=K=64, ins50) with
               the mode pinned to MULTIQ (`mode_override=1`);
-  8. the total time; then the kernels JSON line, the card line, and the
+  8. path E   SSSP (`workloads.sssp`) on `random_graph(n=65536, avg_deg=4,
+              deg_cap=8, seed=0)`, made on the host: the fixed HIER engine
+              (m=32) and the adaptive three-mode engine (m=16, B=144), S=16,
+              C=1<<14, both converging to `bellman_ford`'s distances; then
+              the adaptive engine on a 4096-vertex graph on the card and on
+              the CPU with the same draws: result, trace and final carry
+              bit-identical;
+  9. path F   the DES hold model (`workloads.des`) at S=16, C=1<<17 with
+              1,048,576 pending events (mean hold 2^20), B=64 servers, K=64
+              steps: STRICT_FLAT equal to `hold_model_oracle` step by step,
+              MULTIQ pinned conserving events, the adaptive run recorded and
+              its trace replayed to the same pops; then the bursty M/M/1
+              trace (`bursty_des_trace(BURSTY_PHASES, seed=5)`) saved, loaded
+              and replayed on the card and on the CPU: outputs, mode trace
+              and carry bit-identical;
+  10. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
 them just after its timed windows; a kernel that the path's windows must
 launch (`PATH_KERNELS`) and that no `run_window` call of the path launched
-fails the run (prefill launches do not count towards this).  `merge_sorted` has no caller
+fails the run (prefill launches do not count towards this).  On paths E and
+F a driver's step counts as a window of one step, and a replay's steps
+count alike.  `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/.  The
 script imports nothing of JAX and nothing of the JAX package `repro`.
@@ -93,6 +110,15 @@ TOPK_SHAPES = [
     ((1, 752, 22), "main: path C Fig. 10 c_mix SPRAY"),
     ((2, 176, 22), "main: path C Fig. 10 c_mix HIER semifinal"),
     ((1, 44, 22), "main: path C Fig. 10 c_mix HIER final"),
+    ((2, 256, 32), "main: path E fixed HIER semifinal"),
+    ((1, 64, 32), "main: path E fixed HIER final"),
+    ((1, 2704, 144), "main: path E adaptive SPRAY"),
+    ((2, 1152, 144), "main: path E adaptive HIER semifinal"),
+    ((1, 288, 144), "main: path E adaptive HIER final"),
+    ((1, 2448, 128), "main: path F SPRAY"),
+    ((2, 1024, 128), "main: path F HIER semifinal"),
+    ((1, 256, 128), "main: path F HIER final"),
+    ((1, 2048, 128), "main: path F STRICT_FLAT"),
     ((16, 4096, 64), "registry tuning shape"),
     ((1, 1024, 64), "registry tuning shape"),
     ((1, 512, 64), "registry tuning shape"),
@@ -104,6 +130,9 @@ ELIM_SHAPES = [
     ((64, 64), "main: window op log"),
     ((84, 57), "main: path C Fig. 11 op log"),
     ((30, 22), "main: path C Fig. 10 c_mix op log"),
+    ((1, 144), "main: path E adaptive step op log"),
+    ((1, 128), "main: path F step op log"),
+    ((54, 128), "main: path F bursty replay op log"),
     ((2, 1000), "row wider than registers (B > 256): block body"),
 ]
 MERGE_SHAPES = [
@@ -113,6 +142,12 @@ MERGE_SHAPES = [
     ((16, 256, 57), "main: path C Fig. 11 step insert"),
     ((16, 256, 22), "main: path C Fig. 10 c_mix step insert"),
     ((16, 256, 4096), "main: prefill insert"),
+    ((16, 256, 256), "main: path E fixed relax insert"),
+    ((16, 256, 144), "main: path E adaptive step insert"),
+    ((16, 256, 1), "main: path E source insert"),
+    ((16, 256, 128), "main: path F step insert"),
+    ((16, 256, 32512), "main: path F prefill slice"),
+    ((16, 256, 8192), "main: path F prefill last slice"),
 ]
 # (S, m): validation shapes (src/repro/kernels/registry.py:516-533), then
 # the MULTIQ steps of paths C and D
@@ -120,11 +155,15 @@ TWOCHOICE_SHAPES = [
     ((4, 16), "validation"), ((16, 64), "validation; main: path D"),
     ((8, 5), "validation"), ((16, 57), "main: path C Fig. 11 trace"),
     ((16, 22), "main: path C Fig. 10 c_mix trace"),
+    ((16, 128), "main: path F MULTIQ step"),
+    ((16, 144), "main: path E adaptive MULTIQ step"),
 ]
 MULTIQ_SHAPES = [
     ((4, 16), "validation"), ((16, 64), "validation; main: path D"),
     ((2, 8), "validation"), ((16, 57), "main: path C Fig. 11 trace"),
     ((16, 22), "main: path C Fig. 10 c_mix trace"),
+    ((16, 128), "main: path F MULTIQ step"),
+    ((16, 144), "main: path E adaptive MULTIQ step"),
 ]
 # (S, C, R): validation shapes (registry.py:549-557), the tuning shape,
 # then rows holding equal (key, val) words across buffer and run (all vals
@@ -411,6 +450,9 @@ PATH_KERNELS = {
     "C": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
           "multiq_select"),
     "D": ("windowed_merge", "elim_sort", "twochoice_pick", "multiq_select"),
+    "E": ("windowed_merge", "topk_smallest", "elim_sort"),
+    "F": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
+          "multiq_select"),
 }
 PREFILL_BATCH = 4096
 # Kernel launches inside `run_window` calls only (prefills excluded), per
@@ -537,20 +579,18 @@ def run_checked(pq, carry, window, device, expect_size,
 TRACE_DIR = ROOT / "build" / "chip_smoke"
 
 
-def device_share(pq, carry, window, device, expect_size, window_s, tag,
-                 **kw):
-    """Run one more window under torch.profiler (`kw` go to `run_checked`)
-    and sum the card's busy time in its trace (kernels, copies, sets);
-    against the median unprofiled window time `window_s` that gives the
-    card's busy share.  Returns ((busy ms or None when the trace holds no
-    device work, share or None, device calls in the window, the five
-    busiest device functions as (name, calls, ms)), carry after the window,
-    size after the window)."""
+def new_profiler():
     from torch.profiler import ProfilerActivity, profile
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    carry, _, _, _, size = run_checked(pq, carry, window, device,
-                                       expect_size, around=prof, **kw)
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def busy_share(prof, tag, window_s):
+    """Sum the card's busy time (kernels, copies, sets) in the trace of the
+    finished profiler `prof`; against the unprofiled time `window_s` of the
+    same work that gives the card's busy share.  Returns (busy ms or None
+    when the trace holds no device work, share or None, device calls, the
+    five busiest device functions as (name, calls, ms))."""
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
     path = TRACE_DIR / f"window_{tag}.json"
     prof.export_chrome_trace(str(path))
@@ -561,21 +601,33 @@ def device_share(pq, carry, window, device, expect_size, window_s, tag,
             calls, us = busy.get(e["name"], (0, 0.0))
             busy[e["name"]] = (calls + 1, us + float(e["dur"]))
     if not busy:
-        return (None, None, 0, []), carry, size
+        return None, None, 0, []
     busy_ms = sum(us for _, us in busy.values()) / 1e3
     top = sorted(busy.items(), key=lambda kv: -kv[1][1])[:5]
-    share = (busy_ms, busy_ms / (window_s * 1e3),
-             sum(c for c, _ in busy.values()),
-             [(name[:80], calls, us / 1e3) for name, (calls, us) in top])
-    return share, carry, size
+    return (busy_ms, busy_ms / (window_s * 1e3),
+            sum(c for c, _ in busy.values()),
+            [(name[:80], calls, us / 1e3) for name, (calls, us) in top])
 
 
-def share_line(busy_ms, share, calls, top) -> str:
+def device_share(pq, carry, window, device, expect_size, window_s, tag,
+                 **kw):
+    """Run one more window under torch.profiler (`kw` go to `run_checked`)
+    and read the card's busy share against the median unprofiled window
+    time `window_s` (`busy_share`).  Returns (the share, carry after the
+    window, size after the window)."""
+    prof = new_profiler()
+    carry, _, _, _, size = run_checked(pq, carry, window, device,
+                                       expect_size, around=prof, **kw)
+    return busy_share(prof, tag, window_s), carry, size
+
+
+def share_line(busy_ms, share, calls, top, per="window",
+               of="the median window") -> str:
     if busy_ms is None:
         return "card busy share not measured (no device events in the trace)"
     tops = "; ".join(f"{n} x{c} {ms:.3f}ms" for n, c, ms in top)
-    return (f"card busy {busy_ms:.3f} ms per window in {calls} device calls, "
-            f"share {share:.4f} of the median window (idle {1 - share:.4f}); "
+    return (f"card busy {busy_ms:.3f} ms per {per} in {calls} device calls, "
+            f"share {share:.4f} of {of} (idle {1 - share:.4f}); "
             f"busiest: {tops}")
 
 
@@ -651,7 +703,6 @@ def cpu_agreement(tag, pq_gpu, kept, seed: int = 0):
     config, tree, prefill, inputs and draws: carry and outputs must be
     bit-identical to the card's.  `kept` holds (prefill config, window,
     run_window arguments, the card's (carry, result) as numpy)."""
-    import numpy as np
     import torch
 
     from repro_torch.convert import carry_to_numpy
@@ -663,15 +714,10 @@ def cpu_agreement(tag, pq_gpu, kept, seed: int = 0):
         carry = prefill(pq, cfg, seed, dev)
         carry, res, *_ = run_checked(pq, carry, window, dev, cfg["prefill"],
                                      **kw)
-        got_state, got_stats = carry_to_numpy(carry)
-        for name, got, want in (
-                [(f, got_state[f], want_carry[0][f]) for f in got_state]
-                + [(f, got_stats[f], want_carry[1][f]) for f in got_stats]
-                + [(f, x.numpy(), y) for f, x, y in
-                   zip(res._fields, res, want_res)]):
-            if got.dtype != want.dtype or not np.array_equal(got, want):
-                raise AssertionError(f"path {tag} window {w}: {name} differs "
-                                     f"between the card and the CPU")
+        what = f"path {tag} window {w}"
+        _same_carry(what, carry_to_numpy(carry), want_carry)
+        for f, x, y in zip(res._fields, res, want_res):
+            _same_arrays(f"{what}: {f}", x.numpy(), y)
     return len(kept)
 
 
@@ -845,6 +891,330 @@ def path_d(carry, size, seed: int = 0):
 
 
 # ---------------------------------------------------------------------------
+# phases 8-9: the application workloads
+# ---------------------------------------------------------------------------
+
+# Path E: SSSP on a random graph of 2^16 vertices (the road-graph size of
+# about 2^18 takes more steps than a run can afford while the host issues
+# each step), the fixed HIER engine and the adaptive default three-mode one;
+# then a 4096-vertex adaptive run on the card and on the CPU
+PATH_E = dict(n=65536, avg_deg=4, deg_cap=8, graph_seed=0, seed=0, S=16,
+              C=1 << 14, H=256, fixed="HIER", fixed_m=32, m=16,
+              max_steps=1 << 15, small_n=4096, small_seed=1,
+              small_steps=2048, profile_steps=64)
+# Path F: the DES hold model at a backlog of 1,048,576 events spread over
+# [0, 2^20), B = 64 servers, K = 64 steps, then the bursty M/M/1 trace
+PATH_F = dict(S=16, C=1 << 17, H=256, n_init=1 << 20, mean_hold=1 << 20,
+              B=64, K=64, seed=0, bursty_seed=5)
+
+
+def _sync(device):
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def timed_prefills(module, device):
+    """Route `module.prefill` (the drivers' pre-fill) through a wrapper
+    that records its seconds, host syncs and kernel launches, so a driver's
+    steps can be read apart from its pre-fill."""
+    from repro_torch.kernels import ops as KO
+    from repro_torch.utils import hostsync
+
+    rec = {"s": 0.0, "syncs": 0, "launches": {}, "calls": 0}
+    orig = module.prefill
+
+    def wrapped(state, keys, vals):
+        _sync(device)
+        syncs, launches = hostsync.SYNCS["count"], dict(KO.LAUNCHES)
+        t0 = time.perf_counter()
+        out = orig(state, keys, vals)
+        _sync(device)
+        rec["s"] += time.perf_counter() - t0
+        rec["syncs"] += hostsync.SYNCS["count"] - syncs
+        rec["calls"] += 1
+        for k, n in KO.LAUNCHES.items():
+            rec["launches"][k] = rec["launches"].get(k, 0) + n - launches[k]
+        return out
+
+    module.prefill = wrapped
+    try:
+        yield rec
+    finally:
+        module.prefill = orig
+
+
+def run_driver(module, call, device):
+    """Run `call()` (a workload driver or a replay) and measure it: wall
+    seconds, the pre-fill's part, and the host syncs and kernel launches of
+    its steps (the pre-fill's taken out); the launches go to
+    WINDOW_LAUNCHES.  Returns (what `call` returned, measurements)."""
+    from repro_torch.kernels import ops as KO
+    from repro_torch.utils import hostsync
+
+    _sync(device)
+    syncs, launches = hostsync.SYNCS["count"], dict(KO.LAUNCHES)
+    t0 = time.perf_counter()
+    with timed_prefills(module, device) as pre:
+        out = call()
+    _sync(device)
+    wall = time.perf_counter() - t0
+    steps_launches = {k: n - launches[k] - pre["launches"].get(k, 0)
+                      for k, n in KO.LAUNCHES.items()}
+    for k, n in steps_launches.items():
+        WINDOW_LAUNCHES[k] = WINDOW_LAUNCHES.get(k, 0) + n
+    return out, {"wall_s": wall, "prefill_s": pre["s"],
+                 "steps_s": wall - pre["s"],
+                 "syncs": hostsync.SYNCS["count"] - syncs - pre["syncs"],
+                 "launches": {k: n for k, n in steps_launches.items() if n}}
+
+
+def _step_line(meas, steps):
+    return (f"wall {meas['wall_s']:.3f}s (pre-fill {meas['prefill_s']:.3f}s)"
+            f" | {meas['steps_s'] * 1e6 / steps:.1f} us/step | host syncs "
+            f"{meas['syncs'] / steps:.2f}/step | launches "
+            f"{meas['launches']}")
+
+
+def _modes_line(modes) -> str:
+    import itertools
+
+    runs = [(int(m), len(list(g))) for m, g in itertools.groupby(modes)]
+    return f"modes seen {sorted(set(int(m) for m in modes))}, runs " + (
+        f"{runs}" if len(runs) <= 12 else f"{runs[:12]} ... ({len(runs)})")
+
+
+def _same_arrays(what, got, want):
+    import numpy as np
+
+    got, want = np.asarray(got), np.asarray(want)
+    if got.dtype != want.dtype or not np.array_equal(got, want):
+        raise AssertionError(f"{what} differs between the card and the CPU")
+
+
+def _same_carry(what, got, want):
+    """`got` and `want` are carries as `convert.carry_to_numpy` gives them."""
+    for g, w in zip(got, want):
+        for f in g:
+            _same_arrays(f"{what}: carry field {f}", g[f], w[f])
+
+
+def path_e(cfg=PATH_E, device=None):
+    """Phase 8: SSSP.  Both engines on the 2^16-vertex graph must converge
+    to `bellman_ford`'s distances; the 4096-vertex adaptive run on the card
+    and on the CPU, with the same draws, must agree bit for bit (result,
+    recorded trace and final carry).  Returns the launch counts, the steps
+    and the adaptive queue's tree."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import carry_to_numpy
+    from repro_torch.core.pqueue import schedules as SCH
+    from repro_torch.core.smartpq import SmartPQ, SmartPQConfig
+    from repro_torch.workloads import graphs, sssp
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    t0 = time.perf_counter()
+    g = graphs.random_graph(n=cfg["n"], avg_deg=cfg["avg_deg"],
+                            deg_cap=cfg["deg_cap"], seed=cfg["graph_seed"],
+                            device=dev)
+    want = graphs.bellman_ford(g)
+    log(f"[8 path E] random_graph n={g.n} avg_deg={cfg['avg_deg']} "
+        f"deg_cap={g.deg_cap}: {g.num_edges} edges, "
+        f"{int((want < INF_KEY).sum())} reachable, made on the host and "
+        f"Bellman-Ford'd in {time.perf_counter() - t0:.2f}s")
+    pq = SmartPQ(SmartPQConfig(num_shards=cfg["S"], capacity=cfg["C"],
+                               head_width=cfg["H"], npods=2,
+                               decision_interval=2), device=dev)
+    counts_reset()
+    steps = 0
+    fixed = SCH.Schedule[cfg["fixed"]]
+    runs = (
+        (f"fixed {cfg['fixed']} m={cfg['fixed_m']}", lambda: sssp.run_sssp(
+            g, fixed, m=cfg["fixed_m"], num_shards=cfg["S"],
+            capacity=cfg["C"], head_width=cfg["H"], npods=2, seed=cfg["seed"],
+            max_steps=cfg["max_steps"])),
+        (f"adaptive three-mode m={cfg['m']} (B={cfg['m'] * (g.deg_cap + 1)})",
+         lambda: sssp.run_sssp_smartpq(g, pq, m=cfg["m"], seed=cfg["seed"],
+                                       max_steps=cfg["max_steps"])[0]),
+    )
+    for name, call in runs:
+        res, meas = run_driver(sssp, call, dev)
+        if not res.converged:
+            raise AssertionError(f"path E {name}: no convergence in "
+                                 f"{res.steps} steps")
+        if not np.array_equal(res.dist, want):
+            raise AssertionError(f"path E {name}: distances differ from "
+                                 f"bellman_ford")
+        steps += res.steps
+        modes = "" if res.modes is None else (
+            f" | {_modes_line(res.modes)}, transitions {res.transitions}")
+        log(f"[8 path E] {name}, S={cfg['S']} C={cfg['C']}: {res.steps} "
+            f"steps, {res.pops} pops ({res.wasted} wasted), {res.improved} "
+            f"improved relaxations{modes} | {_step_line(meas, res.steps)} | "
+            f"distances equal bellman_ford")
+
+    # the card's busy share over the adaptive engine's first steps
+    n = cfg["profile_steps"]
+
+    def first_steps():
+        return sssp.run_sssp_smartpq(g, pq, m=cfg["m"], seed=cfg["seed"],
+                                     max_steps=n)
+
+    _, meas = run_driver(sssp, first_steps, dev)
+    steps += n
+    prof = new_profiler()
+    with prof:
+        first_steps()
+    log(f"[8 path E profile] adaptive, its first {n} steps: " + share_line(
+        *busy_share(prof, "E", meas["wall_s"]), per=f"{n} steps",
+        of="the same steps unprofiled"))
+
+    # the 4096-vertex adaptive run, card and CPU, one stream of draws
+    cpu = SmartPQ(pq.config, tree=pq.tree, device="cpu")
+    B = cfg["m"] * (cfg["deg_cap"] + 1)
+    draws = SCH.step_draws(pq.config.mode_schedules, cfg["S"], B, cfg["H"],
+                           steps=cfg["small_steps"],
+                           generator=torch.Generator().manual_seed(7))
+    engines = [sssp.make_smartpq_sssp_engine(graphs.random_graph(
+        n=cfg["small_n"], avg_deg=cfg["avg_deg"], deg_cap=cfg["deg_cap"],
+        seed=cfg["small_seed"], device=q.device), q, m=cfg["m"])
+        for q in (pq, cpu)]
+
+    def small_run(engine):
+        return engine(seed=cfg["seed"], max_steps=cfg["small_steps"],
+                      record=True, draws=draws, return_carry=True)
+
+    (rg, tg, cg), meas = run_driver(sssp, lambda: small_run(engines[0]), dev)
+    steps += rg.steps
+    rc, tc, cc = small_run(engines[1])
+    if not rc.converged:
+        raise AssertionError("path E 4096-vertex run: no convergence")
+    for f in rc._fields:
+        _same_arrays(f"path E SSSPResult.{f}", getattr(rg, f), getattr(rc, f))
+    for f in tc._fields:
+        _same_arrays(f"path E trace.{f}", getattr(tg, f), getattr(tc, f))
+    _same_carry("path E", carry_to_numpy(cg), carry_to_numpy(cc))
+    log(f"[8 path E cpu] adaptive n={cfg['small_n']}: {rc.steps} steps, "
+        f"{rc.pops} pops, {_modes_line(rc.modes)} | card: "
+        f"{_step_line(meas, rg.steps)} | SSSPResult, trace and final carry "
+        f"bit-identical on the card and the CPU")
+    launches, in_windows = counts_read("E")
+    return (launches, in_windows, steps), pq.tree
+
+
+def path_f(cfg=PATH_F, tree=None, device=None):
+    """Phase 9: the DES hold model at a 1,048,576-event backlog: STRICT_FLAT
+    against `hold_model_oracle` step by step, MULTIQ conserving events, the
+    adaptive three-mode run recorded and its trace replayed to the same
+    pops; then the bursty M/M/1 trace saved, loaded and replayed on the
+    card and on the CPU with the same draws, bit-identical.  Returns the
+    launch counts and steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import carry_to_numpy
+    from repro_torch.core.pqueue import schedules as SCH
+    from repro_torch.core.smartpq import SmartPQ, SmartPQConfig
+    from repro_torch.workloads import des, traces
+
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    B, K = cfg["B"], cfg["K"]
+
+    def make(schedules=None, device=dev):
+        kw = {} if schedules is None else {
+            "mode_schedules": (SCH.Schedule[schedules],) * 3}
+        return SmartPQ(SmartPQConfig(num_shards=cfg["S"], capacity=cfg["C"],
+                                     head_width=cfg["H"], npods=2,
+                                     decision_interval=2, **kw),
+                       tree=tree, device=device)
+
+    run_kw = dict(B=B, K=K, mean_hold=cfg["mean_hold"], seed=cfg["seed"],
+                  n_init=cfg["n_init"])
+    counts_reset()
+    steps = 0
+    t0 = time.perf_counter()
+    oracle = des.hold_model_oracle(B, K, cfg["mean_hold"], cfg["seed"],
+                                   cfg["n_init"])
+    oracle_s = time.perf_counter() - t0
+    adaptive = make()
+    draws = SCH.step_draws(adaptive.config.mode_schedules, cfg["S"], 2 * B,
+                           cfg["H"], steps=K,
+                           generator=torch.Generator().manual_seed(11))
+    for name, pq, kw in (("STRICT_FLAT", make("STRICT_FLAT"), {}),
+                         ("MULTIQ pinned", make("MULTIQ"), {}),
+                         ("adaptive three-mode, recorded", adaptive,
+                          dict(record=True, draws=draws))):
+        res, meas = run_driver(
+            des, lambda pq=pq, kw=kw: des.run_hold_model(pq, **run_kw, **kw),
+            dev)
+        steps += K
+        check = ""
+        if name == "STRICT_FLAT":
+            for t in range(K):
+                got = res.popped[t][: res.n_out[t]]
+                if not np.array_equal(got, np.asarray(oracle[t], np.int32)):
+                    raise AssertionError(f"path F STRICT_FLAT step {t}: pops "
+                                         f"differ from hold_model_oracle")
+            check = (f"pops equal hold_model_oracle step by step (heapq "
+                     f"{oracle_s:.2f}s)")
+        rescheduled = int(np.sum(res.n_out[:-1]))
+        if res.events + res.final_size != cfg["n_init"] + rescheduled:
+            raise AssertionError(f"path F {name}: events not conserved")
+        check = check or "events conserved"
+        log(f"[9 path F] hold model {name}, S={cfg['S']} C={cfg['C']} "
+            f"n_init={cfg['n_init']} mean_hold={cfg['mean_hold']} B={B} "
+            f"K={K}: {res.events} events, {res.final_size} queued after, "
+            f"{res.events / meas['steps_s']:.0f} events/s | "
+            f"{_modes_line(res.modes)}, transitions {res.transitions} | "
+            f"{_step_line(meas, K)} | {check}")
+    (_, rep), meas = run_driver(
+        traces, lambda: traces.replay(adaptive, res.trace, draws=draws), dev)
+    steps += K
+    if not (np.array_equal(rep.keys[:, :B].cpu().numpy(), res.popped)
+            and np.array_equal(rep.mode.cpu().numpy(), res.modes)):
+        raise AssertionError("path F: the recorded trace's replay differs "
+                             "from the live run")
+    log(f"[9 path F] recorded trace replayed in one window: pops and modes "
+        f"equal the live run | {_step_line(meas, K)}")
+
+    trace = traces.bursty_des_trace(phases=traces.BURSTY_PHASES,
+                                    seed=cfg["bursty_seed"])
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / "bursty_des.npz"
+    traces.save_trace(path, trace)
+    loaded = traces.load_trace(path)
+    draws = SCH.step_draws(adaptive.config.mode_schedules, cfg["S"],
+                           loaded.width, cfg["H"], steps=loaded.num_steps,
+                           generator=torch.Generator().manual_seed(13))
+    (cg, rg), meas = run_driver(
+        traces, lambda: traces.replay(adaptive, loaded, draws=draws), dev)
+    steps += loaded.num_steps
+    prof = new_profiler()
+    with prof:
+        traces.replay(adaptive, loaded, draws=draws)
+    log(f"[9 path F profile] bursty DES replay: " + share_line(
+        *busy_share(prof, "F", meas["wall_s"]), per="window",
+        of="the same window unprofiled"))
+    cc, rc = traces.replay(make(device="cpu"), loaded, draws=draws)
+    for f in rc._fields:
+        _same_arrays(f"path F bursty replay {f}", getattr(rg, f).cpu(),
+                     getattr(rc, f))
+    _same_carry("path F bursty replay", carry_to_numpy(cg),
+                carry_to_numpy(cc))
+    log(f"[9 path F cpu] bursty DES trace (K={loaded.num_steps}, "
+        f"B={loaded.width}) saved, loaded and replayed: "
+        f"{int(rc.n_out.sum())} events, {_modes_line(rc.mode.tolist())}, "
+        f"transitions {int(cc.stats.transitions)} | card: "
+        f"{_step_line(meas, loaded.num_steps)} | outputs, mode trace and "
+        f"carry bit-identical on the card and the CPU")
+    launches, in_windows = counts_read("F")
+    return launches, in_windows, steps
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -928,10 +1298,13 @@ def main() -> int:
     path_b_counts, (carry_b, size_b) = path_b()
     path_c_counts = path_c()
     path_d_counts = path_d(carry_b, size_b)
-    log(f"[8 done] {time.perf_counter() - t_start:.1f}s in all")
+    path_e_counts, tree = path_e()
+    path_f_counts = path_f(tree=tree)
+    log(f"[10 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
-        "D": path_d_counts}, phase2, floor)))
+        "D": path_d_counts, "E": path_e_counts, "F": path_f_counts},
+        phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -129,6 +129,11 @@ class SmartPQConfig:
     )
     initial_mode: int = MODE_OBLIVIOUS
     eliminate: bool = True  # elimination/combining pre-pass
+    # Runtime guard tier: validated callers (`workloads.traces.replay`) run
+    # `validate_carry` after their window and raise its typed
+    # `InvariantViolation`.  Off costs nothing; on costs a host copy of the
+    # state per validated call.
+    validate: bool = False
 
     def __post_init__(self):
         if len(self.mode_schedules) != NUM_MODES:

@@ -41,6 +41,10 @@ from repro_torch.kernels import ref as R
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in build.SOURCES}
 
+# The widest row `windowed_merge` takes, H + R words (its `kMaxWindow`):
+# the row it stages in shared memory stays within 128 KB.
+MAX_MERGE_WINDOW = 1 << 15
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -255,3 +259,25 @@ def merge_sorted_runs(buf_k, buf_v, run_k, run_v):
                 *(t.data_ptr() for t in args), out_k.data_ptr(),
                 out_v.data_ptr(), S, C, Rw, _stream())
     return out_k, out_v
+
+
+# ---------------------------------------------------------------------------
+# segment-min — the SSSP relax fold
+# ---------------------------------------------------------------------------
+
+
+def segment_min_into(dist: torch.Tensor, tgt: torch.Tensor,
+                     vals: torch.Tensor) -> torch.Tensor:
+    """Fold E candidate (target, value) pairs into the (n,) `dist`
+    elementwise-min; targets outside [0, n) drop (the reference's
+    ``mode="drop"``, src/repro/kernels/ops.py:316-334).  The reference has
+    no Pallas kernel for it, only two jnp arms (`kernels/segmin.py`), so it
+    stays one PyTorch op: a scatter-min into an (n + 1,) buffer whose last
+    slot takes the dropped lanes.  int32 min is associative and
+    commutative, so any order of the scatter gives the same result."""
+    n = dist.shape[0]
+    idx = torch.where((tgt >= 0) & (tgt < n), tgt, n).to(torch.int64)
+    buf = torch.cat([dist, dist.new_zeros((1,))])
+    buf.scatter_reduce_(0, idx, vals.to(dist.dtype), "amin",
+                        include_self=True)
+    return buf[:n]

@@ -18,6 +18,7 @@ from repro_torch.core.pqueue.schedules import (Schedule, spray_draws,
 from repro_torch.core.smartpq import SmartPQ, SmartPQConfig
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import ref as KR
+from repro_torch.workloads import des, graphs, sssp, traces
 
 INF_KEY = 2**31 - 1
 
@@ -25,7 +26,12 @@ INF_KEY = 2**31 - 1
 # and the shapes the fused window gives each kernel.
 MERGE = [(4, 64, 16), (2, 256, 7), (6, 100, 60), (3, 8, 8), (16, 256, 64),
          # path C's step inserts (R = B = 57 and 22), then the prefill
-         (16, 256, 57), (16, 256, 22), (16, 256, 4096)]
+         (16, 256, 57), (16, 256, 22), (16, 256, 4096),
+         # the SSSP and DES steps (R = 256 fixed-schedule relax, 144
+         # adaptive SSSP, 128 hold model), `traces.prefill`'s widest slice
+         # and the last slice of a 1,048,576-event backlog
+         (16, 256, 256), (16, 256, 144), (16, 256, 128), (16, 256, 32512),
+         (16, 256, 8192)]
 TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         (1, 1424, 64), (2, 512, 64), (1, 128, 64),
         # path C's lane widths B = 57 and 22 (SPRAY, HIER semifinal, final)
@@ -34,20 +40,33 @@ TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         # the registry's tuning shapes; the widest run in registers (k' =
         # 256) and one too wide for them
         (16, 4096, 64), (1, 1024, 64), (1, 512, 64), (3, 1000, 200),
-        (2, 2048, 300)]
+        (2, 2048, 300),
+        # SSSP: fixed HIER at m = 32, the adaptive step at B = 144 (SPRAY,
+        # HIER semifinal, final); the DES step at B = 128 (the same three,
+        # and STRICT_FLAT)
+        (2, 256, 32), (1, 64, 32), (1, 2704, 144), (2, 1152, 144),
+        (1, 288, 144), (1, 2448, 128), (2, 1024, 128), (1, 256, 128),
+        (1, 2048, 128)]
 SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64),
         # path C's op logs (Fig. 11 Table 3, Fig. 10 c_mix); rows of 32 and
         # 256 words, the narrowest and widest register runs, and of 33, the
         # first with two words a lane; a row count that leaves a block's
         # last warps idle; rows too wide for registers (the block body)
-        (84, 57), (30, 22), (5, 32), (3, 256), (7, 33), (2, 1000)]
+        (84, 57), (30, 22), (5, 32), (3, 256), (7, 33), (2, 1000),
+        # the adaptive SSSP and DES steps' op logs, and the bursty DES
+        # trace's window
+        (1, 144), (1, 128), (54, 128)]
 TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57), (16, 22),
              # the warp with four rounds of deleter lanes, then more shards
              # than a warp has lanes: the block body
-             (16, 128), (40, 100)]
+             (16, 128), (40, 100),
+             # the adaptive SSSP step (B = 144)
+             (16, 144)]
 MULTIQ = [(4, 16), (16, 64), (2, 8), (16, 57), (16, 22),
           # runs of 128 and 256 words in registers
-          (4, 100), (3, 200)]
+          (4, 100), (3, 200),
+          # the DES and adaptive SSSP steps
+          (16, 128), (16, 144)]
 MERGE_SORTED = [(4, 64, 16), (2, 256, 7), (1, 64, 1), (8, 1024, 128),
                 # R = C; a buffer of 16384 words (128 KB of shared memory
                 # in a run block); no run at all
@@ -399,3 +418,103 @@ def test_window_on_the_card_equals_the_cpu():
         for x, y in zip(carry_to_numpy(cg), carry_to_numpy(cc)):
             for f in x:
                 np.testing.assert_array_equal(x[f], y[f], err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# the application workloads on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,E", [(65536, 4096), (4096, 256), (64, 5000)])
+def test_segment_min_into_on_the_card_equals_the_cpu(n, E):
+    """int32 amin in `scatter_reduce_` on the card, with drop sentinels,
+    INF lanes and duplicate targets, equals the CPU's."""
+    dev = _card()
+    rng = np.random.default_rng(n + E)
+    dist = rng.integers(0, 1 << 20, n).astype(np.int32)
+    dist[rng.random(n) < 0.3] = INF_KEY
+    tgt = rng.integers(0, min(n, 64), E).astype(np.int32)
+    tgt[rng.random(E) < 0.2] = n
+    vals = rng.integers(0, 1 << 20, E).astype(np.int32)
+    vals[rng.random(E) < 0.2] = INF_KEY
+    args = [torch.as_tensor(a) for a in (dist, tgt, vals)]
+    want = KO.segment_min_into(*args)
+    got = KO.segment_min_into(*(a.to(dev) for a in args))
+    assert got.device.type == dev.type and torch.equal(got.cpu(), want)
+
+
+def _equal_results(a, b):
+    for f in a._fields:
+        x, y = getattr(a, f), getattr(b, f)
+        if isinstance(x, np.ndarray):
+            np.testing.assert_array_equal(x, y, err_msg=f)
+        elif f != "trace":
+            assert x == y, (f, x, y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("schedule", ["HIER", "MULTIQ"])
+def test_fixed_schedule_sssp_on_the_card_equals_the_cpu(schedule):
+    dev = _card()
+    g_gpu = graphs.random_graph(n=512, seed=0, device=dev)
+    g_cpu = graphs.random_graph(n=512, seed=0, device="cpu")
+    draws = step_draws((Schedule[schedule],), 16, 32, 256, steps=512,
+                       generator=torch.Generator().manual_seed(3))
+    kw = dict(m=32, num_shards=16, capacity=1024, seed=3, max_steps=512)
+    got = sssp.run_sssp(g_gpu, Schedule[schedule], draws=draws, **kw)
+    want = sssp.run_sssp(g_cpu, Schedule[schedule], draws=draws, **kw)
+    _equal_results(got, want)
+    assert got.converged
+    np.testing.assert_array_equal(got.dist, graphs.bellman_ford(g_cpu))
+
+
+@pytest.mark.gpu
+def test_adaptive_sssp_on_the_card_equals_the_cpu():
+    """Result, modes and recorded trace, spray and HIER steps both."""
+    dev = _card()
+    cfg = SmartPQConfig(num_shards=16, capacity=1024, npods=2,
+                        decision_interval=2)
+    gpu = SmartPQ(cfg, device=dev)
+    cpu = SmartPQ(cfg, tree=gpu.tree, device="cpu")
+    draws = step_draws(cfg.mode_schedules, 16, 144, 256, steps=512,
+                       generator=torch.Generator().manual_seed(2))
+    (rg, tg), (rc, tc) = (
+        sssp.run_sssp_smartpq(graphs.random_graph(n=512, seed=1,
+                                                  device=pq.device),
+                              pq, m=16, seed=2, record=True,
+                              num_clients=512, draws=draws)
+        for pq in (gpu, cpu))
+    _equal_results(rg, rc)
+    for x, y in zip(tg, tc):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    assert rg.converged and 0 in rg.modes.tolist()
+
+
+@pytest.mark.gpu
+def test_hold_model_and_bursty_replay_on_the_card_equal_the_cpu():
+    dev = _card()
+    cfg = SmartPQConfig(num_shards=16, capacity=1 << 12, npods=2,
+                        decision_interval=2)
+    gpu = SmartPQ(cfg, device=dev)
+    cpu = SmartPQ(cfg, tree=gpu.tree, device="cpu")
+    gen = torch.Generator().manual_seed(7)
+    draws = step_draws(cfg.mode_schedules, 16, 128, 256, steps=32,
+                       generator=gen)
+    kw = dict(B=64, K=32, seed=7, n_init=20000, mean_hold=1 << 12,
+              num_clients=512, record=True, draws=draws)
+    got, want = des.run_hold_model(gpu, **kw), des.run_hold_model(cpu, **kw)
+    _equal_results(got, want)
+    for x, y in zip(got.trace, want.trace):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+    trace = traces.bursty_des_trace(phases=traces.BURSTY_PHASES, seed=5)
+    draws = step_draws(cfg.mode_schedules, 16, trace.width, 256,
+                       steps=trace.num_steps, generator=gen)
+    (cg, rg), (cc, rc) = (traces.replay(pq, trace, draws=draws)
+                          for pq in (gpu, cpu))
+    for a, b in zip(rg, rc):
+        assert torch.equal(a.cpu(), b)
+    for x, y in zip(carry_to_numpy(cg), carry_to_numpy(cc)):
+        for f in x:
+            np.testing.assert_array_equal(x[f], y[f], err_msg=f)
+    assert len(set(rc.mode.tolist())) >= 2

@@ -63,6 +63,28 @@ def test_smartpq_runs_on_the_card_by_default():
             SmartPQ(cfg)
 
 
+def test_workloads_run_on_the_card_by_default():
+    """A graph, the registry's queue and the recorders (which build both)
+    go to the card unless the caller names another device; the drivers and
+    `replay` run where their graph or queue lives."""
+    from repro_torch.workloads import graphs, registry, sssp
+
+    if torch.cuda.is_available():
+        assert graphs.random_graph(n=16).nbr.device.type == "cuda"
+        assert registry.default_pq(num_shards=4,
+                                   capacity=64).device.type == "cuda"
+        return
+    for make in (lambda: graphs.random_graph(n=16),
+                 lambda: registry.default_pq(num_shards=4, capacity=64),
+                 lambda: registry.get("sssp").make_trace(True, 0),
+                 lambda: registry.get("des_hold").make_trace(True, 0)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    g = graphs.random_graph(n=16, device="cpu")
+    assert sssp.run_sssp(g, sssp.Schedule.HIER, m=4, num_shards=4,
+                         capacity=64).converged
+
+
 def test_chip_smoke_gives_no_result_without_card_or_repo(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     runs = [_python(["chip_smoke.py"], cwd=tmp_path)]

@@ -392,3 +392,96 @@ def test_mode_steps_and_host_prediction_match_jax(trees):
     for point in ((64, 4000, 4096, 0.5), (16, 3000, 1 << 20, 0.6),
                   (512, 100, 1 << 14, 0.95), (8, 1 << 16, 1 << 24, 0.1)):
         assert tpq.predict_mode_host(*point) == jpq.predict_mode_host(*point)
+
+
+# ---------------------------------------------------------------------------
+# differential cases: configurations and inputs off the main path
+# ---------------------------------------------------------------------------
+
+ONLY = {s: (s,) * 3 for s in ("STRICT_FLAT", "FFWD", "LOCAL", "SPRAY_FRASER")}
+DIFF_CASES = {
+    "no_elim_two_mode": dict(cfg=dict(eliminate=False)),
+    "no_elim_three_mode": dict(schedules=THREE_MODE,
+                               cfg=dict(eliminate=False)),
+    **{f"{s.lower()}_only": dict(schedules=v) for s, v in ONLY.items()},
+    "float_keys_nan_inf_out_of_range": dict(schedules=THREE_MODE,
+                                            keys="float"),
+    "nop_lanes_30pct": dict(schedules=THREE_MODE, nop=0.3),
+    "shard_of_128_slots_ins95": dict(schedules=THREE_MODE,
+                                     cfg=dict(capacity=128), ins=0.95,
+                                     B=64, windows=4),
+    "initial_aware_interval_1": dict(
+        schedules=THREE_MODE, cfg=dict(initial_mode=2, decision_interval=1)),
+    "interval_3_per_step_clients": dict(
+        schedules=THREE_MODE, cfg=dict(decision_interval=3),
+        clients=[4, 64, 512, 16, 8]),
+    "negative_keys_b23_s6": dict(cfg=dict(num_shards=6), B=23, keys="neg",
+                                 npods=2),
+}
+
+
+def _diff_window(seed, B, ins, nop, keys, clients):
+    rng = np.random.default_rng(seed)
+    ops = (rng.random((K, B)) > ins).astype(np.int32)
+    ops[rng.random((K, B)) < nop] = 2  # OP_NOP
+    if keys == "float":
+        k = rng.uniform(-1e4, 1e4, (K, B)).astype(np.float32)
+        specials = np.float32([np.nan, np.inf, -np.inf, 3e9, -3e9, 2.5e9])
+        hit = rng.random((K, B)) < 0.25
+        k[hit] = rng.choice(specials, int(hit.sum()))
+    elif keys == "neg":
+        k = rng.integers(-5000, 100, (K, B)).astype(np.int32)
+    else:
+        k = rng.integers(0, 4096, (K, B)).astype(np.int32)
+    vals = rng.integers(0, 99, (K, B)).astype(np.int32)
+    nc = np.broadcast_to(np.asarray(clients, np.int32), (K,)).copy()
+    return ops, k, vals, jax.random.split(jax.random.key(seed), K), nc
+
+
+@pytest.mark.parametrize("case", sorted(DIFF_CASES))
+def test_run_window_differential_cases_bitmatch_jax(trees, case):
+    """Outputs, every state leaf and every stats field equal the
+    reference's, window after window, with its draws injected."""
+    c = DIFF_CASES[case]
+    cfg = dict(num_shards=S, capacity=C, npods=c.get("npods", 2),
+               decision_interval=2)
+    cfg.update(c.get("cfg", {}))
+    schedules = c.get("schedules", TWO_MODE)
+    jpq = JPQ(JCfg(mode_schedules=tuple(JS[s] for s in schedules), **cfg),
+              tree=trees[0])
+    tpq = TPQ(TCfg(mode_schedules=tuple(TS[s] for s in schedules), **cfg),
+              tree=trees[1], device="cpu")
+    jc, tc = jpq.init(), tpq.init()
+    for w in range(c.get("windows", 3)):
+        window = _diff_window(60 + w, c.get("B", B), c.get("ins", 0.5),
+                              c.get("nop", 0.0), c.get("keys"),
+                              c.get("clients", 64))
+        jc, tc, _ = _run_both(jpq, tpq, jc, tc, window)
+    if case.startswith("float"):
+        assert int(tc.stats.rejected) > 0
+    if case.startswith("shard_of_128"):  # the shards ran full
+        assert int(tc.state.total_size) > 0.9 * cfg["num_shards"] * 128
+
+
+@pytest.mark.parametrize("case", ["m_above_head", "shards_not_over_pods"])
+def test_refusals_match_jax(trees, case):
+    """Both packages refuse a deleteMin bound above the head tier and a
+    shard count that does not split over the pods.  The pod check is an
+    AssertionError in the reference and a ValueError in the port."""
+    if case == "m_above_head":
+        jpq, tpq = _pair(trees, head_width=16)
+        want_type, got_type = ValueError, ValueError
+        msg = "delete batch bound m=32 exceeds the hot head tier width H=16"
+    else:
+        cfg = dict(num_shards=6, capacity=C, npods=4, decision_interval=2)
+        jpq = JPQ(JCfg(mode_schedules=(JS.HIER,) * 3, **cfg), tree=trees[0])
+        tpq = TPQ(TCfg(mode_schedules=(TS.HIER,) * 3, **cfg), tree=trees[1],
+                  device="cpu")
+        want_type, got_type = AssertionError, ValueError
+        msg = "shards 6 must split evenly over 4 pods"
+    with pytest.raises(want_type, match=msg):
+        _run_both(jpq, tpq, jpq.init(), tpq.init(), _window(70, 0.5))
+    with pytest.raises(got_type, match=msg):
+        ops, keys, vals, rngs, nc = _window(70, 0.5)
+        tpq.run_window(tpq.init(), _t(ops), _t(keys), _t(vals),
+                       draws=_draws(rngs, 16), num_clients=_t(nc))
