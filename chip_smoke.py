@@ -56,7 +56,23 @@ non-zero before its last line):
               trace (`bursty_des_trace(BURSTY_PHASES, seed=5)`) saved, loaded
               and replayed on the card and on the CPU: outputs, mode trace
               and carry bit-identical;
-  10. the total time; then the kernels JSON line, the card line, and the
+  10. path G  the serving tier (`serve`) at the scheduler's default queue
+              (16 shards x 8,192 slots, B = 64 lanes, three modes, HIER at
+              first): G1 the reference's SLO run (benchmarks/serve_slo.py)
+              on `bursty_serve_workload(steps=64, seed=1)` with 8 decode
+              slots at K = 1, 4 and 16, forecast off and on, every request
+              completed, each window's dispatch stream equal to K `tick`
+              calls replayed with its budgets, the K = 4 forecast run rerun
+              on the CPU; G2 a deep backlog under 4x overload (the shape of
+              benchmarks/overload.py at 64 slots: about 15,400 open-loop
+              requests over 512 ticks), open loop and controlled, the
+              conservation identities of `health()` after every window, the
+              controlled run's first 128 ticks rerun on the CPU, 64 deep
+              ticks of the open-loop run profiled; G3 the guard tier: a
+              window tripped once recovers on the fallback queue as a direct
+              fallback run does, tripped twice raises
+              `WindowValidationError` with the checkpoint restored;
+  11. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -64,7 +80,7 @@ them just after its timed windows; a kernel that the path's windows must
 launch (`PATH_KERNELS`) and that no `run_window` call of the path launched
 fails the run (prefill launches do not count towards this).  On paths E and
 F a driver's step counts as a window of one step, and a replay's steps
-count alike.  `merge_sorted` has no caller
+count alike; on path G an engine tick does.  `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/.  The
 script imports nothing of JAX and nothing of the JAX package `repro`.
@@ -120,12 +136,14 @@ TOPK_SHAPES = [
     ((1, 256, 128), "main: path F HIER final"),
     ((1, 2048, 128), "main: path F STRICT_FLAT"),
     ((16, 4096, 64), "registry tuning shape"),
-    ((1, 1024, 64), "registry tuning shape"),
+    ((1, 1024, 64), "registry tuning shape; main: path G STRICT_FLAT "
+                    "fallback"),
     ((1, 512, 64), "registry tuning shape"),
     ((2, 2048, 300), "run wider than registers (k' = 512)"),
 ]
 ELIM_SHAPES = [
-    ((1, 16), "validation"), ((4, 64), "validation"),
+    ((1, 16), "validation"), ((4, 64), "validation; main: path G K=4 "
+                                         "window op log"),
     ((6, 37), "validation"), ((8, 128), "validation"),
     ((64, 64), "main: window op log"),
     ((84, 57), "main: path C Fig. 11 op log"),
@@ -133,12 +151,14 @@ ELIM_SHAPES = [
     ((1, 144), "main: path E adaptive step op log"),
     ((1, 128), "main: path F step op log"),
     ((54, 128), "main: path F bursty replay op log"),
+    ((1, 64), "main: path G tick op log"),
+    ((16, 64), "main: path G K=16 window op log"),
     ((2, 1000), "row wider than registers (B > 256): block body"),
 ]
 MERGE_SHAPES = [
     ((4, 64, 16), "validation"), ((2, 256, 7), "validation"),
     ((6, 100, 60), "validation"), ((3, 8, 8), "validation"),
-    ((16, 256, 64), "main: step insert"),
+    ((16, 256, 64), "main: step insert; path G tick insert"),
     ((16, 256, 57), "main: path C Fig. 11 step insert"),
     ((16, 256, 22), "main: path C Fig. 10 c_mix step insert"),
     ((16, 256, 4096), "main: prefill insert"),
@@ -152,14 +172,14 @@ MERGE_SHAPES = [
 # (S, m): validation shapes (src/repro/kernels/registry.py:516-533), then
 # the MULTIQ steps of paths C and D
 TWOCHOICE_SHAPES = [
-    ((4, 16), "validation"), ((16, 64), "validation; main: path D"),
+    ((4, 16), "validation"), ((16, 64), "validation; main: paths D, G"),
     ((8, 5), "validation"), ((16, 57), "main: path C Fig. 11 trace"),
     ((16, 22), "main: path C Fig. 10 c_mix trace"),
     ((16, 128), "main: path F MULTIQ step"),
     ((16, 144), "main: path E adaptive MULTIQ step"),
 ]
 MULTIQ_SHAPES = [
-    ((4, 16), "validation"), ((16, 64), "validation; main: path D"),
+    ((4, 16), "validation"), ((16, 64), "validation; main: paths D, G"),
     ((2, 8), "validation"), ((16, 57), "main: path C Fig. 11 trace"),
     ((16, 22), "main: path C Fig. 10 c_mix trace"),
     ((16, 128), "main: path F MULTIQ step"),
@@ -452,6 +472,8 @@ PATH_KERNELS = {
     "D": ("windowed_merge", "elim_sort", "twochoice_pick", "multiq_select"),
     "E": ("windowed_merge", "topk_smallest", "elim_sort"),
     "F": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
+          "multiq_select"),
+    "G": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
           "multiq_select"),
 }
 PREFILL_BATCH = 4096
@@ -1215,6 +1237,441 @@ def path_f(cfg=PATH_F, tree=None, device=None):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the serving tier
+# ---------------------------------------------------------------------------
+
+# Path G: the serving scheduler's default queue (src/repro/serve/
+# scheduler.py:163-166, 16 shards x 8,192 slots, B = 64 lanes, HIER at
+# first) under the synthetic-decode engine.  G1: benchmarks/serve_slo.py:
+# 25-58 (8 decode slots); G2: benchmarks/overload.py:31-56 at 64 slots:
+# load x 64 / 8.5 arrivals a tick (8.5 tokens the mean request), 4x open
+# loop and controlled, and 2x controlled: at 4x class 0 alone (a quarter
+# of the arrivals) loads the slots fully, so the controller's MULTIQ vote,
+# gated on class 0 being OK, never comes; at 2x it does.  G3: the guard
+# tier.
+PATH_G = dict(
+    slo=dict(steps=64, seed=1, batch_size=8, windows=(1, 4, 16),
+             max_steps=100_000, draws=512),
+    overload=dict(ticks=512, seed=7, batch_size=64, K=4,
+                  backlog_cap=4096, targets=(8.0, 16.0, 32.0),
+                  runs=(("open loop", 4, False), ("controlled", 4, True),
+                        ("controlled", 2, True)),
+                  max_steps=3 * 512, cpu_ticks=128, profile=(448, 512),
+                  min_peak=2000),
+    guard=dict(K=4, windows=6, per_tick=40, budget=24, trip_window=2,
+               seed=3),
+    S=16, B=64, H=256, max_seq=512)
+
+
+def serve_draws(ticks, seed):
+    """`ticks` ticks of the default three-mode queue's draws, from a CPU
+    generator, so a CPU rerun can take the very same ones."""
+    import torch
+
+    from repro_torch.core.pqueue import schedules as SCH
+
+    c = PATH_G
+    return SCH.step_draws((SCH.Schedule.SPRAY_HERLIHY, SCH.Schedule.MULTIQ,
+                           SCH.Schedule.HIER), c["S"], c["B"], c["H"],
+                          steps=ticks,
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def serve_run(eng, workload, max_steps, check=False, capture_at=None,
+              profile=None):
+    """`eng.run(workload, max_steps)`, measured: wall seconds and host
+    syncs less the probe's own, kernel launches (added to WINDOW_LAUNCHES),
+    each window's seconds.  A probe after every window reads `health()`
+    when `check` and fails unless ``inserted == dispatched + on_device``
+    and ``inserted + arrival_backlog + shed + evicted == submitted``
+    (requeued requests counted as submitted again); it counts the windows
+    after which the overload controller votes MULTIQ for the next; at step
+    `capture_at` it keeps the carry, health, completion steps and mode
+    trace;
+    `profile` = (first tick, end tick) runs those windows under
+    torch.profiler.  Returns (summary, measurements)."""
+    from repro_torch.convert import carry_to_numpy
+    from repro_torch.kernels import ops as KO
+    from repro_torch.utils import hostsync
+
+    dev = eng.device
+    rec = {"probe_s": 0.0, "probe_syncs": 0, "peak_on_device": 0,
+           "capture": None, "requeued": 0, "submitted": 0, "window_s": {},
+           "prof": None, "checks": 0, "votes": 0}
+    sched = eng.scheduler
+    advance, requeue = eng._advance, sched.requeue
+
+    def counted_requeue(reqs):
+        rec["requeued"] += len(reqs)
+        requeue(reqs)
+
+    def probed(arr, step0, max_steps):
+        if profile and step0 == profile[0]:
+            rec["prof"] = new_profiler()
+            rec["prof"].start()
+        t0 = time.perf_counter()
+        out = advance(arr, step0, max_steps)
+        _sync(dev)
+        rec["window_s"][step0] = (out[1], time.perf_counter() - t0)
+        if profile and step0 + out[1] == profile[1]:
+            rec["prof"].stop()
+        t0, syncs = time.perf_counter(), hostsync.SYNCS["count"]
+        rec["submitted"] += sum(map(len, arr))
+        if eng.overload is not None:
+            rec["votes"] += eng.overload.mode_override() == 1
+        if check:
+            h = eng.health()
+            if h["inserted"] != h["dispatched"] + h["on_device"]:
+                raise AssertionError(f"step {step0}: inserted {h['inserted']}"
+                                     f" != dispatched + on_device {h}")
+            if (h["inserted"] + h["arrival_backlog"] + h["shed"]
+                    + h["evicted"] != rec["submitted"] + rec["requeued"]):
+                raise AssertionError(f"step {step0}: requests not conserved "
+                                     f"({rec['submitted']} submitted, "
+                                     f"{rec['requeued']} requeued, {h})")
+            rec["peak_on_device"] = max(rec["peak_on_device"],
+                                        h["on_device"])
+            rec["checks"] += 1
+        if capture_at is not None and step0 + out[1] == capture_at:
+            rec["capture"] = (carry_to_numpy(sched.carry), eng.health(),
+                              dict(eng.done_step),
+                              list(sched.stats.mode_trace))
+        rec["probe_s"] += time.perf_counter() - t0
+        rec["probe_syncs"] += hostsync.SYNCS["count"] - syncs
+        return out
+
+    eng._advance, sched.requeue = probed, counted_requeue
+    try:
+        _sync(dev)
+        syncs, launches = hostsync.SYNCS["count"], dict(KO.LAUNCHES)
+        t0 = time.perf_counter()
+        summary = eng.run(workload, max_steps=max_steps)
+        _sync(dev)
+        wall = time.perf_counter() - t0
+    finally:
+        del eng._advance, sched.requeue
+    run_launches = {k: n - launches[k] for k, n in KO.LAUNCHES.items()}
+    for k, n in run_launches.items():
+        WINDOW_LAUNCHES[k] = WINDOW_LAUNCHES.get(k, 0) + n
+    rec.update(
+        wall_s=wall - rec["probe_s"],
+        syncs=hostsync.SYNCS["count"] - syncs - rec["probe_syncs"],
+        launches={k: n for k, n in run_launches.items() if n})
+    return summary, rec
+
+
+def _slo_line(eng, summary, meas) -> str:
+    m = eng.obs.metrics
+    tokens = float(m.value("tokens_emitted_total"))
+    ticks = summary["steps"]
+    classes = "; ".join(
+        f"c{c}: queue p50/p99 {m.percentile('latency_queue_steps', 50, slo=c)}"
+        f"/{m.percentile('latency_queue_steps', 99, slo=c)}, per-token "
+        f"p50/p99 {m.percentile('latency_per_token_steps', 50, slo=c)}/"
+        f"{m.percentile('latency_per_token_steps', 99, slo=c)} steps "
+        f"({m.hist_count('latency_queue_steps', slo=c)} done)"
+        for c in range(3))
+    return (f"{summary['completed']} completed in {ticks} ticks | "
+            f"{meas['wall_s'] * 1e6 / max(tokens, 1):.1f} us/token, "
+            f"{meas['wall_s'] * 1e6 / ticks:.1f} us/tick, "
+            f"{tokens / ticks:.3f} tokens/step | {classes} | "
+            f"{_modes_line(summary['mode_trace'])}, transitions "
+            f"{summary['pq_transitions']} | host syncs "
+            f"{meas['syncs'] / ticks:.2f}/tick | launches/tick "
+            + str({k: round(n / ticks, 3)
+                   for k, n in sorted(meas['launches'].items())}))
+
+
+def _same_serving(what, eng, want_carry, want_health, want_done, want_modes):
+    from repro_torch.convert import carry_to_numpy
+
+    _same_carry(what, carry_to_numpy(eng.scheduler.carry), want_carry)
+    if eng.health() != want_health:
+        raise AssertionError(f"{what}: health() differs between the card "
+                             f"and the CPU")
+    if eng.done_step != want_done:
+        raise AssertionError(f"{what}: completion steps differ")
+    if eng.scheduler.stats.mode_trace != want_modes:
+        raise AssertionError(f"{what}: mode traces differ")
+
+
+def path_g1(tree, cfg=PATH_G, device=None):
+    """G1: the SLO run at K = 1, 4, 16, forecast off and on, on injected
+    draws, then K = 4 with the forecast on the scheduler's own CUDA
+    generator (what `ServeEngine` runs when no draws are given), with the
+    conservation identities after every window.  Each window's arrivals and
+    budgets are logged and replayed as K `tick` calls on a fresh scheduler
+    with the same draws or the same seed: the same dispatch stream, mode
+    trace and carry (but `ring_deferred`, a window's own counter).  The
+    K = 4 forecast run on injected draws is rerun on the CPU.  Returns the
+    engine runs' ticks."""
+    import torch
+
+    from repro_torch.convert import carry_to_numpy
+    from repro_torch.serve import EngineConfig, ServeEngine, SmartPQScheduler
+    from repro_torch.workloads import traces
+
+    c = cfg["slo"]
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    draws = serve_draws(c["draws"], 17)
+    ticks = 0
+    runs = ([(1, True, draws)] + [(K, f, draws) for K in c["windows"][1:]
+                                  for f in (False, True)]
+            + [(4, True, None)])
+    for K, forecast, run_draws in runs:
+        ecfg = EngineConfig(batch_size=c["batch_size"],
+                            max_seq=cfg["max_seq"], sched_window=K,
+                            forecast=forecast)
+        wl = traces.bursty_serve_workload(steps=c["steps"], seed=c["seed"])
+        total = sum(map(len, wl))
+        eng = ServeEngine(None, None, ecfg, seed=0, device=dev, tree=tree,
+                          draws=run_draws)
+        log_ = []
+        tick_window = eng.scheduler.tick_window
+
+        def logged(arrivals, budgets, _tw=tick_window, _log=log_):
+            out = _tw(arrivals, budgets)
+            _log.append(([list(a) for a in arrivals], list(budgets),
+                         [[r.uid for r in t] for t in out]))
+            return out
+
+        eng.scheduler.tick_window = logged
+        summary, meas = serve_run(eng, wl, c["max_steps"], check=True)
+        del eng.scheduler.tick_window
+        ticks += summary["steps"]
+        if summary["completed"] != total:
+            raise AssertionError(f"path G1 K={K}: {summary['completed']} of "
+                                 f"{total} requests completed")
+        check = ""
+        if K > 1:
+            seq = SmartPQScheduler(batch_size=cfg["B"], seed=0, device=dev,
+                                   tree=tree, draws=run_draws)
+            for arrivals, budgets, want in log_:
+                got = [[r.uid for r in seq.tick(a, b)]
+                       for a, b in zip(arrivals, budgets)]
+                if got != want:
+                    raise AssertionError(f"path G1 K={K}: a window's "
+                                         f"dispatch stream differs from K "
+                                         f"ticks")
+            if seq.stats != eng.scheduler.stats:
+                raise AssertionError(f"path G1 K={K}: scheduler stats "
+                                     f"differ from K ticks")
+            got_c, want_c = (carry_to_numpy(x) for x in (eng.scheduler.carry,
+                                                         seq.carry))
+            got_c[1].pop("ring_deferred"), want_c[1].pop("ring_deferred")
+            _same_carry(f"path G1 K={K} window against ticks", got_c, want_c)
+            check = (f" | {len(log_)} windows equal K ticks replayed with "
+                     f"their budgets")
+        if K == 4 and forecast and run_draws is not None:
+            cpu = ServeEngine(None, None, ecfg, device="cpu", tree=tree,
+                              draws=draws)
+            cpu.run(traces.bursty_serve_workload(steps=c["steps"],
+                                                 seed=c["seed"]),
+                    max_steps=c["max_steps"])
+            _same_serving("path G1 K=4 forecast", cpu,
+                          carry_to_numpy(eng.scheduler.carry), eng.health(),
+                          eng.done_step, eng.scheduler.stats.mode_trace)
+            check += " | rerun on the CPU: completion steps, mode trace, " \
+                     "health and carry bit-identical"
+        log(f"[10 path G1] serve_slo K={K} forecast={forecast}, draws "
+            f"{'injected' if run_draws is not None else 'CUDA generator'}, "
+            f"{total} requests, {c['batch_size']} slots: "
+            f"{_slo_line(eng, summary, meas)} | conservation identities held "
+            f"after {meas['checks']} windows{check}")
+    return ticks
+
+
+def path_g2(tree, cfg=PATH_G, device=None):
+    """G2: the deep backlog under overload (`runs`: name, load, control),
+    with the conservation identities after every window.  The open-loop
+    runs draw from the scheduler's own CUDA generator, as a `ServeEngine`
+    given no draws does; the controlled runs take injected draws, so that
+    their first ticks can be rerun on the CPU, and the 2x one must vote
+    MULTIQ (launching `twochoice_pick` and `multiq_select`); then 64 deep
+    ticks of the 4x open-loop run under the profiler.  Returns the ticks
+    run."""
+    import torch
+
+    from repro_torch.kernels import ops as KO
+    from repro_torch.serve import EngineConfig, ServeEngine
+    from repro_torch.workloads import traces
+
+    c = cfg["overload"]
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    draws = serve_draws(c["max_steps"] + c["K"], 19)
+
+    def workload(load):
+        return traces.open_loop_requests(traces.poisson_arrival_counts(
+            c["ticks"], load * c["batch_size"] / 8.5, seed=c["seed"]),
+            seed=c["seed"])
+
+    def engine(targets, device=dev):
+        return ServeEngine(None, None, EngineConfig(
+            batch_size=c["batch_size"], max_seq=cfg["max_seq"],
+            sched_window=c["K"], forecast=True, slo_targets=targets,
+            backlog_cap=c["backlog_cap"]), seed=c["seed"], device=device,
+            tree=tree, draws=None if targets is None else draws)
+
+    ticks = 0
+    window_s = None
+    for name, load, control in c["runs"]:
+        targets = c["targets"] if control else None
+        total = sum(map(len, workload(load)))
+        eng = engine(targets)
+        launches0 = dict(KO.LAUNCHES)
+        summary, meas = serve_run(
+            eng, workload(load), c["max_steps"], check=True,
+            capture_at=c["cpu_ticks"] if control else None)
+        ticks += summary["steps"]
+        h = eng.health()
+        ran = {k: KO.LAUNCHES[k] - launches0[k]
+               for k in ("twochoice_pick", "multiq_select")}
+        note = (f" | MULTIQ ticks {summary['mode_trace'].count(1)}, "
+                f"controller's MULTIQ votes {meas['votes']} windows, "
+                f"MULTIQ kernel launches {ran}")
+        if not control:
+            window_s = meas["window_s"]
+            if meas["peak_on_device"] < c["min_peak"]:
+                raise AssertionError(f"path G2 open loop: the device queue "
+                                     f"peaked at {meas['peak_on_device']}")
+        else:
+            if load == 2 and not (meas["votes"] and all(ran.values())):
+                raise AssertionError(f"path G2 controlled 2x: no MULTIQ vote "
+                                     f"ran (launches {ran})")
+            cpu = engine(targets, device="cpu")
+            cpu.run(workload(load), max_steps=c["cpu_ticks"])
+            _same_serving(f"path G2 controlled {load}x, first "
+                          f"{c['cpu_ticks']} ticks", cpu, *meas["capture"])
+            note += (f" | first {c['cpu_ticks']} ticks rerun on the CPU: "
+                     f"carry, health, completion steps and mode trace "
+                     f"bit-identical")
+        log(f"[10 path G2] overload {name} {load}x, {total} open-loop "
+            f"requests over {c['ticks']} ticks, {c['batch_size']} slots, "
+            f"K={c['K']}, draws "
+            f"{'CUDA generator' if targets is None else 'injected'}: "
+            f"peak on_device {meas['peak_on_device']}, "
+            f"{h['pending']} pending at the end, shed {h['shed']}, evicted "
+            f"{h['evicted']}, requeued {meas['requeued']} | "
+            f"{_slo_line(eng, summary, meas)} | conservation identities held "
+            f"after {meas['checks']} windows{note}")
+    lo, hi = c["profile"]
+    eng = engine(None)
+    _, meas = serve_run(eng, workload(c["runs"][0][1]), hi,
+                        profile=(lo, hi))
+    ticks += hi
+    unprofiled = sum(s for step0, (n, s) in window_s.items()
+                     if lo <= step0 < hi)
+    log(f"[10 path G2 profile] open loop, ticks {lo}-{hi}: " + share_line(
+        *busy_share(meas["prof"], "G", unprofiled), per=f"{hi - lo} ticks",
+        of="the same ticks unprofiled"))
+    return ticks
+
+
+def path_g3(tree, cfg=PATH_G, device=None):
+    """G3: the guard tier on the default queue with `validate=True`: a hook
+    that trips once recovers the window (one `recovered_windows`) with the
+    dispatch stream and carry of that window run on the fallback queue
+    directly; a hook that trips twice raises `WindowValidationError` with
+    the carry and host state of the pre-window checkpoint."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.errors import (InvariantViolation,
+                                         WindowValidationError)
+    from repro_torch.core.smartpq import (MODE_AWARE, SmartPQConfig,
+                                          carry_fingerprint)
+    from repro_torch.serve import Request, SmartPQScheduler
+
+    c = cfg["guard"]
+    dev = torch.device("cuda") if device is None else torch.device(device)
+    K = c["K"]
+    draws = serve_draws(K * (c["windows"] + 1), 23)
+    trips = {"left": 0}
+
+    def hook(state):
+        if trips["left"]:
+            trips["left"] -= 1
+            return [InvariantViolation("I9", -1, "tripwire")]
+        return []
+
+    def sched(**kw):
+        # the scheduler's default queue with the guard tier armed, as
+        # `EngineConfig(validate=True)` builds it
+        return SmartPQScheduler(
+            batch_size=cfg["B"], device=dev, tree=tree, draws=draws,
+            pq_config=SmartPQConfig(num_shards=16, capacity=8192, npods=2,
+                                    decision_interval=4,
+                                    initial_mode=MODE_AWARE, validate=True),
+            **kw)
+
+    guarded, direct = sched(validate_hook=hook), sched()
+    rng = np.random.default_rng(c["seed"])
+    uid = 0
+    for w in range(c["windows"]):
+        arrivals = []
+        for t in range(K):
+            n = int(rng.integers(0, 2 * c["per_tick"]))
+            arrivals.append([(uid + i, int(rng.integers(1, 64)),
+                              int(rng.integers(0, 3)), w * K + t)
+                             for i in range(n)])
+            uid += n
+        budgets = [int(rng.integers(0, c["budget"])) for _ in range(K)]
+        outs = []
+        for s in (guarded, direct):
+            reqs = [[Request(uid=u, prompt_len=p, max_new_tokens=4,
+                             slo_class=cl, arrival_step=a)
+                     for u, p, cl, a in tick] for tick in arrivals]
+            if s is guarded:
+                trips["left"] = int(w == c["trip_window"])
+                out = s.tick_window(reqs, budgets)
+            else:
+                out = s._window_impl(reqs, budgets, w == c["trip_window"])
+            outs.append([[r.uid for r in t] for t in out])
+        if outs[0] != outs[1]:
+            raise AssertionError(f"path G3 window {w}: the guarded run's "
+                                 f"dispatch stream differs from the direct "
+                                 f"run's")
+    if (guarded.stats.recovered_windows, guarded.stats.failed_windows) != (
+            1, 0):
+        raise AssertionError(f"path G3: stats {guarded.stats}")
+    if carry_fingerprint(guarded.carry) != carry_fingerprint(direct.carry):
+        raise AssertionError("path G3: the recovered run's carry differs "
+                             "from the direct fallback run's")
+    fp, host = carry_fingerprint(guarded.carry), guarded.host_state()
+    trips["left"] = 2
+    try:
+        guarded.tick_window([[] for _ in range(K)], [8] * K)
+    except WindowValidationError:
+        pass
+    else:
+        raise AssertionError("path G3: a window tripped twice did not raise")
+    host["stats"]["failed_windows"] = 1
+    if carry_fingerprint(guarded.carry) != fp or guarded.host_state() != host:
+        raise AssertionError("path G3: the checkpoint was not restored")
+    log(f"[10 path G3] guard tier, validate=True, {c['windows']} windows of "
+        f"K={K} ({uid} requests): window {c['trip_window']} tripped once and "
+        f"recovered on the STRICT_FLAT fallback queue, dispatch stream and "
+        f"carry equal to running it there directly; a window tripped twice "
+        f"raised WindowValidationError with the carry (fingerprint "
+        f"{fp:#010x}) and host state of its checkpoint restored")
+
+
+def path_g(tree):
+    """Phase 10: G1-G3 on the card.  The path's launch counts are those of
+    its engine runs alone (each `serve_run` adds its run's launches to
+    WINDOW_LAUNCHES), per tick over those runs' ticks (an engine tick is a
+    window of one step): G1's K-tick replays and G3's schedulers are checks
+    and stay out of the counts."""
+    from repro_torch.kernels import ops as KO
+
+    counts_reset()
+    ticks = path_g1(tree) + path_g2(tree)
+    path_g3(tree)
+    _, in_runs = counts_read("G")
+    return {k: in_runs.get(k, 0) for k in KO.LAUNCHES}, in_runs, ticks
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1300,11 +1757,12 @@ def main() -> int:
     path_d_counts = path_d(carry_b, size_b)
     path_e_counts, tree = path_e()
     path_f_counts = path_f(tree=tree)
-    log(f"[10 done] {time.perf_counter() - t_start:.1f}s in all")
+    path_g_counts = path_g(tree)
+    log(f"[11 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
-        "D": path_d_counts, "E": path_e_counts, "F": path_f_counts},
-        phase2, floor)))
+        "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
+        "G": path_g_counts}, phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,16 +4,19 @@ Counterpart of the single-file part of src/repro/core/persist.py
 (:51-123): content lands in a temp file in the destination's directory, is
 fsynced and renamed over the destination, so a crash leaves either the old
 file or the complete new one, never a truncated mix.  `save_trace` writes
-through `atomic_savez`.  The reference's manifest-directory snapshots are
-not ported yet.
+through `atomic_savez`, the metrics registry and the tracer's export
+through `atomic_write_json`.  The reference's manifest-directory snapshots
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import io
+import json
 import os
 import tempfile
 from pathlib import Path
+from typing import Any, Optional
 
 import numpy as np
 
@@ -52,6 +55,13 @@ def atomic_write_bytes(path: Path | str, blob: bytes, *,
     if fsync:
         fsync_dir(path.parent)
     return path
+
+
+def atomic_write_json(path: Path | str, obj: Any, *, fsync: bool = True,
+                      indent: Optional[int] = None) -> Path:
+    """`obj` as JSON text plus a newline, written atomically."""
+    text = json.dumps(obj, indent=indent) + "\n"
+    return atomic_write_bytes(path, text.encode("utf-8"), fsync=fsync)
 
 
 def atomic_savez(path: Path | str, *, compressed: bool = False,

@@ -3,14 +3,16 @@
 The JAX package keeps its control flow on the device (`lax.cond`,
 `lax.switch`).  The port runs eagerly, so each of those branches becomes a
 host read of its predicate followed by one branch.  Every such read goes
-through `host_bool` / `host_int`, which count it in `SYNCS`, so a run can
-report how many host syncs a step costs.
+through `host_bool` / `host_int` (or `host_array`, for the serving tier's
+one read of a window's stacked outputs), which count it in `SYNCS`, so a
+run can report how many host syncs a step costs.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 SYNCS: Dict[str, int] = {"count": 0}
@@ -30,6 +32,12 @@ def host_int(value: torch.Tensor) -> int:
     """Read a 0-d integer tensor on the host (one device sync)."""
     SYNCS["count"] += 1
     return int(value.item())
+
+
+def host_array(value: torch.Tensor) -> np.ndarray:
+    """Read a tensor into a numpy array on the host (one device sync)."""
+    SYNCS["count"] += 1
+    return value.detach().cpu().numpy()
 
 
 def resolve_device(device=None) -> torch.device:

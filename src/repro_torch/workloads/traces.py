@@ -19,9 +19,13 @@ Randomness: the reference's replay derives its per-step `jax.random` keys
 from ``trace.seed`` (traces.py:88-91), a stream torch cannot reproduce
 cheaply.  `replay` takes the per-step draws as tensors (``draws=``, as
 `run_window` does) or draws from a `torch.Generator`, by default one seeded
-with ``trace.seed``.  The open-loop request streams (`open_loop_requests`,
-`bursty_serve_workload`) need the serving scheduler's `Request` and are not
-ported yet.
+with ``trace.seed``.
+
+The serving tier's open-loop request streams (`open_loop_requests`,
+`bursty_serve_workload`) turn arrival counts into the scheduler's `Request`
+lists.  A damaged trace bumps ``errors_total{code=TRACE_CORRUPT}`` in the
+process-wide metrics (`obs.get_default()`) before `TraceCorruptError` is
+raised.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from repro_torch.core.pqueue.ops import OP_DELETE_MIN, OP_INSERT, OP_NOP
 from repro_torch.core.pqueue.state import INF_KEY, PQState
 from repro_torch.core.persist import atomic_savez
 from repro_torch.kernels.ops import MAX_MERGE_WINDOW
+from repro_torch.obs import get_default
 from repro_torch.utils.hostsync import host_int
 
 
@@ -127,8 +132,7 @@ def load_trace(path) -> Trace:
                 init_keys=z["init_keys"], init_vals=z["init_vals"],
             )
     except Exception as e:  # zipfile/np errors are implementation details
-        # The reference also counts the error in its `errors_total` metric
-        # (traces.py:129-131); that counter waits for the port of `obs`.
+        get_default().metrics.inc("errors_total", code="TRACE_CORRUPT")
         raise TraceCorruptError(
             f"unreadable npz ({type(e).__name__}: {e})", path=str(path)
         ) from e
@@ -142,7 +146,7 @@ def validate_trace(trace: Trace, path: str | None = None) -> Trace:
     `TraceCorruptError`."""
 
     def bad(detail: str):
-        # `errors_total` waits for `obs`, as in `load_trace`.
+        get_default().metrics.inc("errors_total", code="TRACE_CORRUPT")
         raise TraceCorruptError(detail, path=path)
 
     ops = np.asarray(trace.ops)
@@ -370,6 +374,59 @@ def mmpp_arrival_counts(
         if rng.random() < 1.0 / float(mean_dwell[state]):
             state = (state + 1) % len(rates)
     return counts
+
+
+def open_loop_requests(
+    counts: np.ndarray,
+    seed: int = 0,
+    uid_base: int = 0,
+    slo_weights: Sequence[float] = (0.25, 0.5, 0.25),
+    prompt_range: tuple = (4, 64),
+    new_tokens_range: tuple = (2, 16),
+):
+    """Per-step serving `Request` lists from arrival counts: step t holds
+    `counts[t]` requests.  uids are consecutive from `uid_base`, and every
+    attribute derives from `_hash_u32(uid, seed*salt)`: slo_class from
+    `slo_weights`, prompt length and decode budget uniform over their
+    ranges (src/repro/workloads/traces.py:401-441)."""
+    from repro_torch.serve.scheduler import Request  # serve dep call-local
+
+    cum = np.concatenate([[0], np.cumsum(counts.astype(np.int64))])
+    total = int(cum[-1])
+    uids = uid_base + np.arange(total, dtype=np.int64)
+    cw = np.cumsum(np.asarray(slo_weights, np.float64))
+    cw = cw / cw[-1]
+    u_slo = _hash_u32(uids, seed * 3 + 1).astype(np.float64) / 2**32
+    slo = np.searchsorted(cw, u_slo, side="right").astype(np.int64)
+    plo, phi = prompt_range
+    prompt = plo + _hash_u32(uids, seed * 3 + 2) % max(phi - plo, 1)
+    tlo, thi = new_tokens_range
+    ntok = tlo + _hash_u32(uids, seed * 3 + 3) % max(thi - tlo, 1)
+    workload = []
+    for t in range(len(counts)):
+        lo, hi = int(cum[t]), int(cum[t + 1])
+        workload.append([
+            Request(
+                uid=int(uids[i]), prompt_len=int(prompt[i]),
+                max_new_tokens=int(ntok[i]), slo_class=int(slo[i]),
+                arrival_step=t,
+            )
+            for i in range(lo, hi)
+        ])
+    return workload
+
+
+def bursty_serve_workload(
+    steps: int = 64,
+    rates: Sequence[float] = (12.0, 0.5),
+    mean_dwell: Sequence[float] = (16.0, 32.0),
+    seed: int = 0,
+):
+    """The serve_slo benchmark's open-loop bursty trace: MMPP arrival counts
+    through the stateless request stream."""
+    return open_loop_requests(
+        mmpp_arrival_counts(steps, rates, mean_dwell, seed=seed), seed=seed
+    )
 
 
 def bursty_des_trace(

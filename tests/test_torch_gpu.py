@@ -18,6 +18,8 @@ from repro_torch.core.pqueue.schedules import (Schedule, spray_draws,
 from repro_torch.core.smartpq import SmartPQ, SmartPQConfig
 from repro_torch.kernels import ops as KO
 from repro_torch.kernels import ref as KR
+from repro_torch.serve import (EngineConfig, OverloadConfig, Request,
+                               ServeEngine, SmartPQScheduler)
 from repro_torch.workloads import des, graphs, sssp, traces
 
 INF_KEY = 2**31 - 1
@@ -55,7 +57,9 @@ SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64),
         (84, 57), (30, 22), (5, 32), (3, 256), (7, 33), (2, 1000),
         # the adaptive SSSP and DES steps' op logs, and the bursty DES
         # trace's window
-        (1, 144), (1, 128), (54, 128)]
+        (1, 144), (1, 128), (54, 128),
+        # the serving scheduler's tick and its K = 16 window (B = 64 lanes)
+        (1, 64), (16, 64)]
 TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57), (16, 22),
              # the warp with four rounds of deleter lanes, then more shards
              # than a warp has lanes: the block body
@@ -518,3 +522,123 @@ def test_hold_model_and_bursty_replay_on_the_card_equal_the_cpu():
         for f in x:
             np.testing.assert_array_equal(x[f], y[f], err_msg=f)
     assert len(set(rc.mode.tolist())) >= 2
+
+
+# ---------------------------------------------------------------------------
+# the serving tier on the card
+# ---------------------------------------------------------------------------
+
+
+def _serve_draws(T, S=16, B=64):
+    return step_draws((Schedule.SPRAY_HERLIHY, Schedule.MULTIQ,
+                       Schedule.HIER), S, B, 256, steps=T,
+                      generator=torch.Generator().manual_seed(T))
+
+
+@pytest.mark.gpu
+def test_scheduler_windows_on_the_card_equal_the_cpu():
+    """The scheduler's default queue with an overload controller voting
+    MULTIQ (class 0 light, classes 1 and 2 over their targets), windows of
+    K = 4 and 16 and single ticks, on the card and on the CPU with the same
+    draws: the same dispatch streams, stats and carry."""
+    dev = _card()
+    draws = _serve_draws(200)
+    ov = dict(targets=(8.0, 16.0, 32.0), backlog_cap=256, min_samples=4)
+    gpu = SmartPQScheduler(batch_size=64, seed=1, device=dev, draws=draws,
+                           overload=OverloadConfig(**ov))
+    cpu = SmartPQScheduler(batch_size=64, seed=1, device="cpu",
+                           tree=gpu.pq.tree, draws=draws,
+                           overload=OverloadConfig(**ov))
+    rng = np.random.default_rng(2)
+    uid = tick = 0
+    for K in [4, 16, 1, 4, 16, 1, 16, 4, 16, 4]:
+        arrivals = []
+        for t in range(K):
+            n = int(rng.integers(0, 40))
+            arrivals.append([(uid + i, int(rng.integers(1, 64)),
+                              int(rng.choice(3, p=[0.1, 0.45, 0.45])),
+                              tick + t) for i in range(n)])
+            uid += n
+        budgets = [int(rng.integers(8, 24)) for _ in range(K)]
+        tick += K
+        outs = []
+        for s in (gpu, cpu):
+            reqs = [[Request(uid=u, prompt_len=p, max_new_tokens=4,
+                             slo_class=c, arrival_step=a) for u, p, c, a in ts]
+                    for ts in arrivals]
+            out = (s.tick_window(reqs, budgets) if K > 1
+                   else [s.tick(reqs[0], budgets[0])])
+            outs.append([[r.uid for r in t] for t in out])
+        assert outs[0] == outs[1]
+        assert gpu.stats == cpu.stats
+    assert 1 in gpu.stats.mode_trace and gpu.stats.shed > 0
+    for x, y in zip(carry_to_numpy(gpu.carry), carry_to_numpy(cpu.carry)):
+        for f in x:
+            np.testing.assert_array_equal(x[f], y[f], err_msg=f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [4, 16])
+def test_generator_window_on_the_card_equals_k_ticks(K):
+    """The default draw source on the card (the scheduler's CUDA generator,
+    no `draws=`), default queue: a window dispatches exactly what K `tick`
+    calls with the same seed and budgets dispatch, with the same stats and
+    carry (but `ring_deferred`, the window's own counter), and leaves the
+    same generator stream behind (one more tick agrees)."""
+    dev = _card()
+    win = SmartPQScheduler(batch_size=64, seed=5, device=dev)
+    seq = SmartPQScheduler(batch_size=64, seed=5, device=dev,
+                           tree=win.pq.tree)
+    rng = np.random.default_rng(K)
+    uid = 0
+    for w in range(64 // K):
+        arrivals = []
+        for t in range(K):
+            n = int(rng.integers(0, 48))
+            arrivals.append([(uid + i, int(rng.integers(1, 64)),
+                              int(rng.integers(0, 3)), w * K + t)
+                             for i in range(n)])
+            uid += n
+        budgets = [int(rng.integers(0, 24)) for _ in range(K)]
+        reqs = [[[Request(uid=u, prompt_len=p, max_new_tokens=4, slo_class=c,
+                          arrival_step=a) for u, p, c, a in ts]
+                 for ts in arrivals] for _ in range(2)]
+        got = win.tick_window(reqs[0], budgets)
+        want = [seq.tick(a, b) for a, b in zip(reqs[1], budgets)]
+        assert [[r.uid for r in t] for t in got] == \
+            [[r.uid for r in t] for t in want]
+    assert win.stats == seq.stats and win.pending == seq.pending
+    assert win.stats.dispatched > 0
+    assert [r.uid for r in win.tick([], 8)] == [r.uid for r in seq.tick([], 8)]
+    got, want = carry_to_numpy(win.carry), carry_to_numpy(seq.carry)
+    got[1].pop("ring_deferred"), want[1].pop("ring_deferred")
+    for x, y in zip(got, want):
+        for f in y:
+            np.testing.assert_array_equal(x[f], y[f], err_msg=f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 4])
+def test_engine_run_on_the_card_equals_the_cpu(K):
+    """The synthetic-decode engine on the bursty serving workload, on the
+    card and on the CPU with the same draws: the same summary, health,
+    latency records, outputs and carry."""
+    dev = _card()
+    draws = _serve_draws(600)
+    ecfg = EngineConfig(batch_size=8, max_seq=512, sched_window=K)
+    gpu = ServeEngine(None, None, ecfg, device=dev, draws=draws)
+    cpu = ServeEngine(None, None, ecfg, device="cpu",
+                      tree=gpu.scheduler.pq.tree, draws=draws)
+    sg, sc = (e.run(traces.bursty_serve_workload(steps=48, seed=1),
+                    max_steps=100_000) for e in (gpu, cpu))
+    sg.pop("wall_s"), sc.pop("wall_s")
+    assert sg == sc and sg["completed"] > 0
+    assert gpu.health() == cpu.health()
+    assert gpu.outputs == cpu.outputs
+    lg, lc = gpu.latency_records(), cpu.latency_records()
+    for k in lc:
+        np.testing.assert_array_equal(lg[k], lc[k], err_msg=k)
+    for x, y in zip(carry_to_numpy(gpu.scheduler.carry),
+                    carry_to_numpy(cpu.scheduler.carry)):
+        for f in x:
+            np.testing.assert_array_equal(x[f], y[f], err_msg=f)

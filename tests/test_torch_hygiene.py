@@ -85,6 +85,26 @@ def test_workloads_run_on_the_card_by_default():
                          capacity=64).converged
 
 
+def test_serving_runs_on_the_card_by_default():
+    """The scheduler and the engine go to the card unless the caller names
+    another device, and raise without one."""
+    from repro_torch.serve import EngineConfig, ServeEngine, SmartPQScheduler
+
+    small = dict(batch_size=8, pq_config=None)
+    if torch.cuda.is_available():
+        assert SmartPQScheduler(**small).carry.state.device.type == "cuda"
+        eng = ServeEngine(None, None, EngineConfig(batch_size=2))
+        assert eng.tokens.device.type == "cuda"
+        assert eng.scheduler.carry.state.device.type == "cuda"
+        return
+    for make in (lambda: SmartPQScheduler(**small),
+                 lambda: ServeEngine(None, None, EngineConfig(batch_size=2))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    eng = ServeEngine(None, None, EngineConfig(batch_size=2), device="cpu")
+    assert eng.scheduler.carry.state.device.type == "cpu"
+
+
 def test_chip_smoke_gives_no_result_without_card_or_repo(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
     runs = [_python(["chip_smoke.py"], cwd=tmp_path)]

@@ -1,6 +1,6 @@
 """Parity of the port's trace pipeline (`repro_torch.workloads.traces`)
 with the JAX package's: the generators and arrival processes give the same
-arrays, the npz format is shared both ways, a damaged file raises the typed
+arrays, the open-loop request streams the same requests, the npz format is shared both ways, a damaged file raises the typed
 error with the reference's message, `replay` is bit-identical to the
 reference's `jit_run_window` with the reference's draws injected, and
 `prefill` equals the reference's bulk insert.  Integer outputs must be
@@ -90,6 +90,30 @@ def test_arrival_counts_and_hash_match_jax(seed):
                                   TT._hash_u32(uids, seed * 3 + 1))
 
 
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_request_streams_match_jax(seed):
+    """`open_loop_requests` (default and custom class weights, ranges and
+    uid base) and `bursty_serve_workload` give the reference's requests,
+    field by field, as the port's `Request`."""
+    from repro_torch.serve import Request
+
+    counts = JT.poisson_arrival_counts(48, 9.5, seed=seed)
+    pairs = [(JT.open_loop_requests(counts, seed=seed, **kw),
+              TT.open_loop_requests(counts, seed=seed, **kw))
+             for kw in ({}, dict(uid_base=1000, slo_weights=(1, 1, 2, 4),
+                                 prompt_range=(1, 3),
+                                 new_tokens_range=(5, 6)))]
+    pairs.append((JT.bursty_serve_workload(steps=64, seed=seed),
+                  TT.bursty_serve_workload(steps=64, seed=seed)))
+    for want, got in pairs:
+        assert [len(t) for t in got] == [len(t) for t in want]
+        assert sum(map(len, got)) > 0
+        for wt, gt in zip(want, got):
+            for w, g in zip(wt, gt):
+                assert type(g) is Request
+                assert dataclasses.asdict(g) == dataclasses.asdict(w)
+
+
 # ---------------------------------------------------------------------------
 # the npz format: shared both ways, typed errors on damage
 # ---------------------------------------------------------------------------
@@ -137,6 +161,28 @@ def test_validate_trace_raises_the_references_error(case):
     assert str(got.value) == str(want.value)
     assert got.value.code == want.value.code == "TRACE_CORRUPT"
     assert got.value.detail == want.value.detail and got.value.path == "x.npz"
+
+
+def test_trace_corrupt_bumps_errors_total(tmp_path):
+    """Each refused trace counts ``errors_total{code=TRACE_CORRUPT}`` in the
+    process-wide metrics before the typed error, as the reference's does
+    (src/repro/workloads/traces.py:129-131,146-148)."""
+    from repro_torch import obs
+
+    prev = obs.set_default(obs.Observability())
+    try:
+        m = obs.get_default().metrics
+        bad = _bad_traces()
+        for tr in bad.values():
+            with pytest.raises(TraceCorruptError):
+                TT.validate_trace(tr)
+        assert m.value("errors_total", code="TRACE_CORRUPT") == len(bad)
+        (tmp_path / "cut.npz").write_bytes(b"PK\x03\x04 not a zip")
+        with pytest.raises(TraceCorruptError, match="unreadable npz"):
+            TT.load_trace(tmp_path / "cut.npz")
+        assert m.value("errors_total", code="TRACE_CORRUPT") == len(bad) + 1
+    finally:
+        obs.set_default(prev)
 
 
 @pytest.mark.parametrize("variant", ["truncate", "flip", "missing_array"])

@@ -53,3 +53,16 @@ def chunked_keys(seed, steps, chunk=8):
         key, sub = jax.random.split(key)
         out.append(jax.random.split(sub, chunk))
     return jnp.concatenate(out)[:steps]
+
+
+def scheduler_keys(seed, ticks):
+    """The per-tick keys of the serving scheduler
+    (src/repro/serve/scheduler.py:495,677-682): each tick splits its running
+    key, keeps the first half as the running key and hands the step the
+    second."""
+    key = jax.random.key(seed)
+    out = []
+    for _ in range(ticks):
+        key, sub = jax.random.split(key)
+        out.append(sub)
+    return jnp.stack(out)
