@@ -72,7 +72,26 @@ non-zero before its last line):
               window tripped once recovers on the fallback queue as a direct
               fallback run does, tripped twice raises
               `WindowValidationError` with the checkpoint restored;
-  11. the total time; then the kernels JSON line, the card line, and the
+  11. path H  durable serving (`EngineConfig.durable_dir`: write-ahead log,
+              snapshots, `recover`) on the same queue: H1 G1's K = 4 run not
+              durable, durable with fsync and without, and not durable
+              again (benchmarks/durability.py), µs/tick and the ratios, log
+              records, bytes and syncs, the durable calls' ms by part (log
+              records, registry read, a snapshot's card read, write and
+              prune) and a snapshot's bytes, all four runs equal, 16 deep
+              durable ticks profiled; H2 the SIGKILL drill of
+              tests/test_durability.py with worker processes on the card
+              (`python -m repro_torch.serve.worker --device cuda`) at K = 1
+              and 16, killed at step 9 and restarted, and a supervised run
+              at K = 4 ending with exit codes [-9, 0], every artifact equal
+              to the uninterrupted run's; H3 recovery time against
+              snapshot cadence (intervals 2, 8, 32); H4 recovery from each
+              damage injector (`torn_wal`, `partial_snapshot`,
+              `stale_manifest`) on copies of H1's store; H5 G2's 2x
+              controlled workload as a durable run paused at step 8 and
+              resumed, equal to the uninterrupted run on the card and on
+              the CPU;
+  12. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -80,9 +99,11 @@ them just after its timed windows; a kernel that the path's windows must
 launch (`PATH_KERNELS`) and that no `run_window` call of the path launched
 fails the run (prefill launches do not count towards this).  On paths E and
 F a driver's step counts as a window of one step, and a replay's steps
-count alike; on path G an engine tick does.  `merge_sorted` has no caller
+count alike; on paths G and H an engine tick does (path H counts its
+engine runs and recoveries in this process, not its worker processes).
+`merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
-build/chip_smoke/.  The
+build/chip_smoke/, path H's stores to build/chip_smoke/durable/.  The
 script imports nothing of JAX and nothing of the JAX package `repro`.
 Without a CUDA device, or without the repository beside it, it exits
 non-zero and prints no result.
@@ -474,6 +495,8 @@ PATH_KERNELS = {
     "F": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
           "multiq_select"),
     "G": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
+          "multiq_select"),
+    "H": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
           "multiq_select"),
 }
 PREFILL_BATCH = 4096
@@ -1672,6 +1695,525 @@ def path_g(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: durable serving
+# ---------------------------------------------------------------------------
+
+# Path H: the durable engine (`EngineConfig.durable_dir`) on the serving
+# scheduler's default queue (16 x 8,192 slots, B = 64, HIER at first),
+# write-ahead log fsynced unless stated.  H1: benchmarks/durability.py:
+# 57-106 at G1's workload (`bursty_serve_workload(steps=64, seed=1)`, 8
+# slots, K = 4, the scheduler's CUDA generator): not durable, durable with
+# fsync, durable without and not durable again, a snapshot every 4
+# windows; then 16 deep ticks profiled.  H2: tests/test_durability.py:352-416's SIGKILL drill on
+# the card (`python -m repro_torch.serve.worker --device cuda --steps 24
+# --seed 3 --snapshot-interval 3`) at K = 1 and 16, and the supervised run
+# at K = 4.  H3: benchmarks/durability.py:109-154, recovery time against
+# snapshot cadence.  H4: recovery from each damage injector on copies of
+# H1's store.  H5: G2's 2x controlled workload (64 slots, K = 4, injected
+# draws; the controller votes MULTIQ after 96 ticks, so the path launches
+# the MULTIQ kernels too) as a durable run paused at step 8 and resumed,
+# against the same run uninterrupted on the card and on the CPU.
+PATH_H = dict(
+    wal=dict(steps=64, seed=1, batch_size=8, K=4, snapshot_interval=4,
+             max_steps=100_000, profile=(32, 48), bar=1.10),
+    drill=dict(steps=24, seed=3, snapshot_interval=3, windows=(1, 16),
+               kill_at=9, supervised_K=4, timeout=600),
+    mttr=dict(steps=48, seed=11, batch_size=8, K=4, intervals=(2, 8, 32)),
+    damage=(("torn_wal", ""), ("torn_wal", "flip"), ("torn_wal", "garbage"),
+            ("partial_snapshot", "truncate"), ("partial_snapshot", "delete"),
+            ("stale_manifest", ""), ("stale_manifest", "garbage")),
+    resume=dict(ticks=160, pause_at=8, load=2, seed=7, batch_size=64, K=4,
+                targets=(8.0, 16.0, 32.0), snapshot_interval=4))
+H_DIR = TRACE_DIR / "durable"
+
+
+def _durable_engine(tree, root, device, K, batch_size, seed=0,
+                    snapshot_interval=4, fsync=True, draws=None, **kw):
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    return ServeEngine(None, None, EngineConfig(
+        batch_size=batch_size, max_seq=PATH_G["max_seq"], sched_window=K,
+        forecast=True, durable_dir=None if root is None else str(root),
+        wal_fsync=fsync, snapshot_interval=snapshot_interval, **kw),
+        seed=seed, device=device, tree=tree, draws=draws)
+
+
+def _served(eng):
+    """What a finished serving run must reproduce: completion steps,
+    outputs and the carry's fingerprint."""
+    from repro_torch.core.smartpq import carry_fingerprint
+
+    return (dict(eng.done_step), {u: list(v) for u, v in eng.outputs.items()},
+            carry_fingerprint(eng.scheduler.carry))
+
+
+@contextlib.contextmanager
+def timed_durability(eng):
+    """Record the seconds of each call the durable engine's loop makes
+    beside its windows, by part: the log's window record and its sync, the
+    registry read before a commit, the commit record with its sync and the
+    heartbeat, and a snapshot (its read of the card, the write with its
+    fsyncs, the prune; the rest of a snapshot is its fingerprint and host
+    state), with each snapshot's bytes on disk.  Yields {part: [seconds,
+    ...], "bytes": [...]}."""
+    from repro_torch.core import persist
+
+    rec = {}
+    undo = []
+
+    def wrap(owner, name, key, after=None):
+        fn = getattr(owner, name)
+
+        def timed(*a, **k):
+            if key == "snapshot":
+                _sync(eng.device)
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            rec.setdefault(key, []).append(time.perf_counter() - t0)
+            if after is not None:
+                after(out)
+            return out
+
+        setattr(owner, name, timed)
+        undo.append((owner, name, fn))
+
+    def size(path):
+        rec.setdefault("bytes", []).append(
+            sum(p.stat().st_size for p in path.iterdir()))
+
+    store = eng.durability
+    wrap(store, "log_window", "log window")
+    wrap(eng, "_sync_registry", "registry read")
+    wrap(store, "log_commit", "log commit")
+    wrap(eng, "snapshot", "snapshot", after=size)
+    wrap(persist, "host_tree", "snapshot: card read")
+    wrap(persist, "save_tree", "snapshot: write")
+    wrap(persist, "prune_steps", "snapshot: prune")
+    try:
+        yield rec
+    finally:
+        for owner, name, fn in reversed(undo):
+            if owner is persist:
+                setattr(owner, name, fn)
+            else:
+                delattr(owner, name)
+
+
+def path_h1(tree, cfg=PATH_H, device="cuda"):
+    """H1: what the log and the snapshots cost.  Returns the fsync run's
+    store and engine, and the ticks run."""
+    import torch
+
+    from repro_torch.workloads import traces
+
+    c = cfg["wal"]
+    dev = torch.device(device)
+    ticks = 0
+    runs = {}
+    # the run that is not durable comes first and last: the spread of the
+    # two is the host noise the ratios stand against
+    for name, tag, fsync in (("not durable", None, True),
+                             ("durable, fsync", "fsync", True),
+                             ("durable, no fsync", "nofsync", False),
+                             ("not durable, again", None, True)):
+        root = None if tag is None else H_DIR / f"h1_{tag}"
+        eng = _durable_engine(tree, root, dev, c["K"], c["batch_size"],
+                              fsync=fsync,
+                              snapshot_interval=c["snapshot_interval"])
+        wl = traces.bursty_serve_workload(steps=c["steps"], seed=c["seed"])
+        with (timed_durability(eng) if root is not None
+              else contextlib.nullcontext({})) as parts:
+            summary, meas = serve_run(eng, wl, c["max_steps"], check=True)
+        ticks += summary["steps"]
+        if summary["completed"] != sum(map(len, wl)):
+            raise AssertionError(f"path H1 {name}: {summary['completed']} "
+                                 f"of {sum(map(len, wl))} completed")
+        runs[name] = (eng, summary, meas, parts, root)
+    base = runs["not durable"]
+    us_tick = {k: r[2]["wall_s"] * 1e6 / r[1]["steps"]
+               for k, r in runs.items()}
+    plain = (us_tick["not durable"] + us_tick["not durable, again"]) / 2
+    for name, (eng, summary, meas, parts, _) in runs.items():
+        if (_served(eng) != _served(base[0])
+                or summary["steps"] != base[1]["steps"]):
+            raise AssertionError(f"path H1 {name}: completion steps, outputs"
+                                 f" or carry differ from the run that is "
+                                 f"not durable")
+        tokens = float(eng.obs.metrics.value("tokens_emitted_total"))
+        advance = sum(s for _, s in meas["window_s"].values())
+        line = (f"[11 path H1] {name}: {summary['completed']} completed in "
+                f"{summary['steps']} ticks | {us_tick[name]:.1f} us/tick, "
+                f"{meas['wall_s'] * 1e6 / tokens:.1f} us/token, "
+                f"{us_tick[name] / plain:.4f}x the mean of the two runs "
+                f"that are not durable (the reference's bar "
+                f"{c['bar']:.2f}x, printed, not gated) | inside the windows "
+                f"{advance * 1e6 / summary['steps']:.1f} us/tick, beside "
+                f"them {(meas['wall_s'] - advance) * 1e6 / summary['steps']:.1f}"
+                f" us/tick ({1 - advance / meas['wall_s']:.4f} of the run) | "
+                f"host syncs {meas['syncs'] / summary['steps']:.2f}/tick")
+        if eng.durability is not None:
+            st = eng.durability.stats
+            m = eng.obs.metrics
+            syncs = (m.value("wal_syncs_total", kind="window")
+                     + m.value("wal_syncs_total", kind="commit"))
+            line += (f" | WAL {st.records_appended} records, "
+                     f"{st.bytes_appended} bytes, {int(syncs)} syncs "
+                     f"({'fsync' if eng.ecfg.wal_fsync else 'flush only'}) "
+                     f"| {st.snapshots_written} snapshots of "
+                     f"{parts['bytes'][-1]} bytes on disk, one host read "
+                     f"each | ms a call, mean (min-max) [sum over the run]: "
+                     + "; ".join(
+                         f"{k} {1e3 * sum(v) / len(v):.3f} "
+                         f"({1e3 * min(v):.3f}-{1e3 * max(v):.3f}) "
+                         f"[{1e3 * sum(v):.1f}]"
+                         for k, v in parts.items() if k != "bytes"))
+            eng.durability.close()
+        log(line + " | completion steps, outputs and carry fingerprint "
+            "equal across the four runs")
+    # 16 deep ticks of the fsync run, unprofiled and then profiled: each on
+    # a fresh store run to the first tick, then timed to the last
+    lo, hi = c["profile"]
+    seg = {}
+    for tag in ("plain", "profiled"):
+        eng = _durable_engine(tree, H_DIR / f"h1_profile_{tag}", dev, c["K"],
+                              c["batch_size"],
+                              snapshot_interval=c["snapshot_interval"])
+        wl = traces.bursty_serve_workload(steps=c["steps"], seed=c["seed"])
+        eng.run(wl, max_steps=lo)
+        prof = new_profiler() if tag == "profiled" else None
+        _sync(dev)
+        t0 = time.perf_counter()
+        with prof if prof is not None else contextlib.nullcontext():
+            eng.run(wl, max_steps=hi)
+            _sync(dev)
+        seg[tag] = (time.perf_counter() - t0, prof)
+        ticks += hi
+        eng.durability.close()
+    log(f"[11 path H1 profile] durable with fsync, ticks {lo}-{hi} (4 "
+        f"windows, each logged and committed, and a snapshot): "
+        f"{seg['plain'][0] * 1e3:.3f} ms unprofiled | " + share_line(
+            *busy_share(seg["profiled"][1], "H", seg["plain"][0]),
+            per=f"{hi - lo} ticks", of="the same ticks unprofiled"))
+    _, _, _, _, root = runs["durable, fsync"]
+    return root, runs["durable, fsync"][0], ticks
+
+
+def _worker_args(store, K, c, device, kill=False):
+    args = ["--dir", str(store), "--out", f"{store}.json", "--steps",
+            str(c["steps"]), "--seed", str(c["seed"]), "--window", str(K),
+            "--snapshot-interval", str(c["snapshot_interval"]),
+            "--device", device]
+    if kill:
+        args += ["--sigkill-at-step", str(c["kill_at"]), "--crash-marker",
+                 f"{store}.marker"]
+    return args
+
+
+def _wait_all(procs, deadline):
+    """Wait for every (name, Popen, start) in `procs`; returns each one's
+    (exit code, seconds from its start)."""
+    done = {}
+    while len(done) < len(procs):
+        for name, p, t0 in procs:
+            if name not in done and p.poll() is not None:
+                done[name] = (p.returncode, time.perf_counter() - t0)
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"path H2: workers still running: "
+                                 f"{[n for n, _, _ in procs if n not in done]}")
+        time.sleep(0.02)
+    return done
+
+
+def path_h2(cfg=PATH_H, device="cuda"):
+    """H2: the SIGKILL drill.  The uninterrupted runs go through the
+    worker's `main` in this process; the killed and restarted incarnations
+    are worker processes, K = 1 and 16 side by side, with the supervised
+    K = 4 run beside them in a thread.  Returns the ticks run in this
+    process."""
+    import os
+    import subprocess
+    import threading
+
+    from repro_torch.serve import Supervisor, SupervisorConfig, worker
+
+    c = cfg["drill"]
+    Ks = tuple(c["windows"]) + (c["supervised_K"],)
+    want, ticks = {}, 0
+    for K in Ks:
+        store = H_DIR / f"h2_ref_{K}"
+        if worker.main(_worker_args(store, K, c, device)) != 0:
+            raise AssertionError(f"path H2 K={K}: the uninterrupted run "
+                                 f"broke conservation")
+        want[K] = json.loads(Path(f"{store}.json").read_text())
+        ticks += want[K]["summary"]["steps"]
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.serve.worker"]
+    sup_out = {}
+
+    def supervised():
+        store = H_DIR / f"h2_{c['supervised_K']}"
+        try:
+            sup_out["report"] = Supervisor(
+                base + _worker_args(store, c["supervised_K"], c, device,
+                                    kill=True), store / "heartbeat.json",
+                SupervisorConfig(heartbeat_timeout=120.0,
+                                 startup_timeout=300.0, poll_interval=0.05,
+                                 backoff_base=0.05), env=env).run()
+        except Exception as e:  # raised again in the main thread
+            sup_out["error"] = e
+
+    procs, walls = [], {}
+    thread = threading.Thread(target=supervised)
+    thread.start()
+    deadline = time.perf_counter() + c["timeout"]
+    try:
+        for phase, rc in (("killed", -9), ("restarted", 0)):
+            procs = []
+            for K in c["windows"]:
+                store = H_DIR / f"h2_{K}"
+                with open(f"{store}.{phase}.err", "w") as err:
+                    procs.append((K, subprocess.Popen(
+                        base + _worker_args(store, K, c, device, kill=True),
+                        cwd=str(ROOT), env=env, stdout=subprocess.DEVNULL,
+                        stderr=err), time.perf_counter()))
+            for K, (code, s) in _wait_all(procs, deadline).items():
+                walls[(K, phase)] = s
+                if code != rc:
+                    tail = Path(f"{H_DIR / f'h2_{K}'}.{phase}.err"
+                                ).read_text()[-3000:]
+                    raise AssertionError(f"path H2 K={K}: the {phase} "
+                                         f"incarnation exited {code}, not "
+                                         f"{rc}:\n{tail}")
+    finally:
+        for _, p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        thread.join(timeout=max(deadline - time.perf_counter(), 1.0))
+    if thread.is_alive():
+        raise AssertionError("path H2: the supervised run did not finish")
+    if "error" in sup_out:
+        raise sup_out["error"]
+    rep = sup_out["report"]
+    got = {K: json.loads(Path(f"{H_DIR / f'h2_{K}'}.json").read_text())
+           for K in Ks}
+    for K in Ks:
+        for key in ("completions", "done_step", "outputs_crc", "carry_crc",
+                    "conservation"):
+            if got[K][key] != want[K][key]:
+                raise AssertionError(f"path H2 K={K}: {key} differs from "
+                                     f"the uninterrupted run's")
+        if got[K]["recover"]["replayed_windows"] < 1:
+            raise AssertionError(f"path H2 K={K}: recovery replayed nothing")
+    if rep.outcome != "completed" or rep.exit_codes != [-9, 0]:
+        raise AssertionError(f"path H2 supervised: {rep.as_dict()}")
+    for K in c["windows"]:
+        r = got[K]["recover"]
+        log(f"[11 path H2] SIGKILL drill K={K}, worker processes on the "
+            f"{device} (the scheduler's generator there): killed at step "
+            f"{c['kill_at']} with rc -9 after {walls[(K, 'killed')]:.3f}s, "
+            f"restarted on the same store with the same command line, rc 0 "
+            f"after {walls[(K, 'restarted')]:.3f}s (each incarnation's wall,"
+            f" process start included); recover() {r['seconds'] * 1e6:.1f} "
+            f"us: snapshot step {r['snapshot_step']}, "
+            f"{r['replayed_windows']} windows of {r['wal_records']} log "
+            f"records replayed | completions ({len(got[K]['completions'])})"
+            f", done steps, outputs CRC {got[K]['outputs_crc']:#010x}, "
+            f"carry fingerprint {got[K]['carry_crc']:#010x} and "
+            f"conservation equal to the uninterrupted run's")
+    r = got[c["supervised_K"]]["recover"]
+    log(f"[11 path H2] supervised K={c['supervised_K']}: exit codes "
+        f"{rep.exit_codes}, {rep.restarts} restart, {rep.wall_s:.3f}s in "
+        f"all; recover() {r['seconds'] * 1e6:.1f} us "
+        f"({r['replayed_windows']} windows replayed); all five artifacts "
+        f"equal to the uninterrupted run's")
+    return ticks
+
+
+def path_h3(tree, cfg=PATH_H, device="cuda"):
+    """H3: recovery time against snapshot cadence (benchmarks/
+    durability.py run_mttr): a durable run stopped at the end of its
+    arrivals, its final snapshot removed, recovered by a fresh engine,
+    which must equal the stopped one.  Returns the ticks run."""
+    import shutil
+
+    import torch
+
+    from repro_torch.workloads import traces
+
+    c = cfg["mttr"]
+    dev = torch.device(device)
+    ticks = 0
+    parts = []
+    for interval in c["intervals"]:
+        root = H_DIR / f"h3_{interval}"
+
+        def engine():
+            return _durable_engine(tree, root, dev, c["K"], c["batch_size"],
+                                   seed=c["seed"], snapshot_interval=interval)
+
+        e1 = engine()
+        e1.run(traces.bursty_serve_workload(steps=c["steps"],
+                                            seed=c["seed"]),
+               max_steps=c["steps"])
+        ticks += e1._step
+        shutil.rmtree(root / "snapshots" / f"step_{e1._step}")
+        (root / "snapshots" / "LATEST").unlink(missing_ok=True)
+        e1.durability.close()
+        e2 = engine()
+        _sync(dev)
+        t0 = time.perf_counter()
+        info = e2.recover()
+        _sync(dev)
+        us = (time.perf_counter() - t0) * 1e6
+        ticks += e2._step - (info["snapshot_step"] or 0)
+        if _served(e2) != _served(e1) or e2._step != e1._step:
+            raise AssertionError(f"path H3 interval {interval}: the "
+                                 f"recovered engine differs")
+        e2.durability.close()
+        parts.append(f"interval {interval}: {us:.1f} us, snapshot step "
+                     f"{info['snapshot_step']}, {info['replayed_windows']} "
+                     f"windows replayed")
+    log(f"[11 path H3] recovery time against snapshot cadence, "
+        f"bursty_serve_workload(steps={c['steps']}, seed={c['seed']}), "
+        f"K={c['K']}, stopped at step {c['steps']} without its final "
+        f"snapshot: " + "; ".join(parts) + " | each recovered engine equal "
+        "to the stopped one")
+    return ticks
+
+
+def path_h4(tree, root, want, cfg=PATH_H, device="cuda"):
+    """H4: each damage injector on a copy of H1's fsync store; a fresh
+    engine recovers to the finished run's completion steps, outputs and
+    carry, and counts what it skipped and dropped.  Returns the ticks
+    replayed."""
+    import shutil
+
+    import torch
+
+    from repro_torch.faults import FaultSpec, inject
+
+    c = cfg["wal"]
+    dev = torch.device(device)
+    ticks = 0
+    parts = []
+    for kind, variant in cfg["damage"]:
+        copy = H_DIR / f"h4_{kind}_{variant or 'default'}"
+        shutil.copytree(root, copy)
+        inject(copy, FaultSpec(kind=kind, variant=variant, rate=0.5))
+        eng = _durable_engine(tree, copy, dev, c["K"], c["batch_size"],
+                              snapshot_interval=c["snapshot_interval"])
+        info = eng.recover()
+        ticks += eng._step - info["snapshot_step"]
+        st = eng.durability.stats
+        # a damaged newest snapshot is skipped, counted, and the older one
+        # replayed forward; a torn log tail loses its last (commit) record
+        skipped = int(kind == "partial_snapshot"
+                      or (kind, variant) == ("stale_manifest", "garbage"))
+        dropped = int(kind == "torn_wal")
+        if _served(eng) != want:
+            raise AssertionError(f"path H4 {kind} {variant!r}: recovery "
+                                 f"landed elsewhere")
+        if (st.snapshots_skipped_invalid, st.torn_records_dropped) != (
+                skipped, dropped):
+            raise AssertionError(f"path H4 {kind} {variant!r}: "
+                                 f"{st.snapshots_skipped_invalid} snapshots "
+                                 f"skipped, {st.torn_records_dropped} torn "
+                                 f"records dropped")
+        eng.durability.close()
+        parts.append(f"{kind} {variant or 'default'}: snapshot step "
+                     f"{info['snapshot_step']}, {info['replayed_windows']} "
+                     f"windows replayed, {st.snapshots_skipped_invalid} "
+                     f"skipped, {st.torn_records_dropped} torn records "
+                     f"dropped ({st.torn_bytes_dropped} bytes)")
+    log("[11 path H4] damaged copies of H1's fsync store, each recovered to "
+        "the finished run's completion steps, outputs and carry "
+        "fingerprint: " + "; ".join(parts))
+    return ticks
+
+
+def path_h5(tree, cfg=PATH_H, device="cuda"):
+    """H5: G2's 2x controlled workload, durable, on injected draws, paused
+    at `pause_at` and resumed by a fresh engine, against the same run
+    uninterrupted on the card and on the CPU: completion steps, outputs,
+    carry, health and mode trace.  The controller must vote MULTIQ.
+    Returns the ticks run."""
+    import torch
+
+    from repro_torch.workloads import traces
+
+    c = cfg["resume"]
+    dev = torch.device(device)
+    draws = serve_draws(c["ticks"] + c["K"], 19)
+
+    def engine(name, device):
+        return _durable_engine(
+            tree, H_DIR / f"h5_{name}", device, c["K"], c["batch_size"],
+            seed=c["seed"], snapshot_interval=c["snapshot_interval"],
+            draws=draws, slo_targets=c["targets"], backlog_cap=4096)
+
+    def run(eng, max_steps):
+        eng.run(traces.open_loop_requests(traces.poisson_arrival_counts(
+            512, c["load"] * c["batch_size"] / 8.5, seed=c["seed"]),
+            seed=c["seed"]), max_steps=max_steps)
+        eng.durability.close()
+
+    def outcome(eng):
+        h = eng.health()
+        h.pop("durability")
+        return _served(eng) + (h, list(eng.scheduler.stats.mode_trace))
+
+    run(engine("paused", dev), c["pause_at"])
+    resumed = engine("paused", dev)
+    info = resumed.recover()
+    run(resumed, c["ticks"])
+    whole, cpu = engine("whole", dev), engine("cpu", "cpu")
+    run(whole, c["ticks"])
+    run(cpu, c["ticks"])
+    got = outcome(resumed)
+    if got != outcome(whole):
+        raise AssertionError("path H5: the resumed run differs from the "
+                             "uninterrupted run on the card")
+    if got != outcome(cpu):
+        raise AssertionError("path H5: the card differs from the CPU")
+    modes, h = got[-1], got[3]
+    if 1 not in modes:
+        raise AssertionError("path H5: the controller never voted MULTIQ")
+    log(f"[11 path H5] G2's {c['load']}x controlled workload, durable, "
+        f"{c['batch_size']} slots, K={c['K']}, injected draws: paused at "
+        f"step {c['pause_at']}, resumed from snapshot step "
+        f"{info['snapshot_step']} ({info['replayed_windows']} windows "
+        f"replayed) to step {c['ticks']} | {h['completed']} completed, shed "
+        f"{h['shed']}, evicted {h['evicted']}, MULTIQ ticks "
+        f"{modes.count(1)} | completion steps, outputs, carry fingerprint "
+        f"{got[2]:#010x}, health and mode trace equal to the uninterrupted "
+        f"run on the card and on the CPU")
+    return 2 * c["ticks"]
+
+
+def path_h(tree):
+    """Phase 11: H1-H5 on the card.  The path's launch counts are those of
+    its engine runs and recoveries in this process (H2's worker processes
+    count in their own), per tick over their ticks."""
+    import shutil
+
+    from repro_torch.kernels import ops as KO
+
+    shutil.rmtree(H_DIR, ignore_errors=True)
+    H_DIR.mkdir(parents=True)
+    counts_reset()
+    root, eng, ticks = path_h1(tree)
+    want = _served(eng)
+    ticks += path_h2()
+    ticks += path_h3(tree)
+    ticks += path_h4(tree, root, want)
+    ticks += path_h5(tree)
+    WINDOW_LAUNCHES.update(KO.LAUNCHES)
+    _, in_runs = counts_read("H")
+    return {k: in_runs.get(k, 0) for k in KO.LAUNCHES}, in_runs, ticks
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -1758,11 +2300,14 @@ def main() -> int:
     path_e_counts, tree = path_e()
     path_f_counts = path_f(tree=tree)
     path_g_counts = path_g(tree)
-    log(f"[11 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_h_counts = path_h(tree)
+    log(f"[11 path H] {time.perf_counter() - t0:.1f}s")
+    log(f"[12 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
-        "G": path_g_counts}, phase2, floor)))
+        "G": path_g_counts, "H": path_h_counts}, phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

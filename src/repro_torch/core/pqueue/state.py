@@ -233,12 +233,20 @@ def invariant_violations(state: PQState, first_only: bool = True):
     return out
 
 
+def leaf_bytes(x) -> bytes:
+    """A tensor's or numpy array's bytes, C order."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.ascontiguousarray(x).tobytes()
+
+
 def state_fingerprint(state: PQState) -> int:
     """Order-stable CRC32 over every field's bytes (field order fixed by the
     dataclass) — equal to the reference's `state_fingerprint` for a
-    bit-identical state."""
+    bit-identical state.  The leaves may be tensors or numpy arrays (a
+    state read to the host)."""
     crc = 0
     for f in dataclasses.fields(state):
-        arr = np.ascontiguousarray(getattr(state, f.name).detach().cpu().numpy())
-        crc = zlib.crc32(arr.tobytes(), zlib.crc32(f.name.encode(), crc))
+        crc = zlib.crc32(leaf_bytes(getattr(state, f.name)),
+                         zlib.crc32(f.name.encode(), crc))
     return crc & 0xFFFFFFFF

@@ -43,7 +43,6 @@ import dataclasses
 import zlib
 from typing import NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch.core.classifier.dataset import make_training_set
@@ -71,6 +70,7 @@ from repro_torch.core.pqueue.state import (
     INF_KEY,
     PQState,
     invariant_violations,
+    leaf_bytes,
     make_state,
     state_fingerprint,
 )
@@ -422,9 +422,10 @@ class SmartPQ:
 
 def carry_fingerprint(carry: SmartPQCarry) -> int:
     """CRC32 over the whole carry — `state_fingerprint` chained with every
-    stats field — equal to the reference's for a bit-identical carry."""
+    stats field — equal to the reference's for a bit-identical carry.  The
+    leaves may be tensors or numpy arrays (`persist.host_tree` of a
+    carry)."""
     crc = state_fingerprint(carry.state)
     for name, leaf in zip(SmartPQStats._fields, carry.stats):
-        arr = np.ascontiguousarray(leaf.detach().cpu().numpy())
-        crc = zlib.crc32(arr.tobytes(), zlib.crc32(name.encode(), crc))
+        crc = zlib.crc32(leaf_bytes(leaf), zlib.crc32(name.encode(), crc))
     return crc & 0xFFFFFFFF

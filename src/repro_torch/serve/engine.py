@@ -5,9 +5,15 @@ synthetic decode (the next token is a pure function of the current one and
 never the EOS id, so completion timing is driven by `max_new_tokens`) — the
 engine loop the SLO and overload benchmarks drive, without a model.  A
 model config (`cfg`) waits for the port of the model path (ROADMAP queue 1
-item 8), and the durable engine (`EngineConfig.durable_dir`, `snapshot`,
-`recover`) for the durability layer (item 6); both raise
-`NotImplementedError` until then.
+item 8) and raises `NotImplementedError` until then.
+
+With `EngineConfig.durable_dir` set the engine is durable
+(`serve/durability.py`): each window's arrivals are written to the
+write-ahead log and fsynced before the window runs, a commit record after
+it, and every `snapshot_interval` windows `snapshot()` writes the whole
+serving state; `run()` starts with `recover()`, which loads the newest
+valid snapshot and replays the log's window suffix through `_advance`, the
+path the live run takes.
 
 Host loop, one engine tick:
 
@@ -62,9 +68,11 @@ class EngineConfig:
     backlog_cap: int = 4096
     # Arm the PQ's runtime guard tier (SmartPQConfig.validate).
     validate: bool = False
-    # Durability (write-ahead log + snapshots): ROADMAP queue 1 item 6.
-    # durable_dir raises until then; the other three are read only when it
-    # is set, as in the reference.
+    # Durability: a directory arms the write-ahead log and the snapshots
+    # (serve/durability.py); `recover()` runs at the top of `run()`.  None
+    # keeps the engine in memory.  The other three are read only when it is
+    # set: fsync the log's appends and commits (off: the benchmark's probe
+    # of the disk's share), windows between snapshots, snapshots kept.
     durable_dir: Optional[str] = None
     wal_fsync: bool = True
     snapshot_interval: int = 4
@@ -89,10 +97,6 @@ class ServeEngine:
                 "ServeEngine with a model config: the model path is not "
                 "ported yet (ROADMAP queue 1 item 8); cfg=None runs the "
                 "synthetic decode")
-        if engine_cfg.durable_dir is not None:
-            raise NotImplementedError(
-                "durable serving (EngineConfig.durable_dir) is not ported "
-                "yet (ROADMAP queue 1 item 6)")
         del mesh
         self.device = resolve_device(device)
         self.ecfg = engine_cfg
@@ -141,6 +145,20 @@ class ServeEngine:
         # forecast's slot-recycling horizon.
         self._service_est = 8.0
         self._step = 0
+        self.durability = None
+        self._recovered = False
+        if engine_cfg.durable_dir is not None:
+            from repro_torch.serve.durability import (DurabilityConfig,
+                                                      DurableStore)
+
+            self.durability = DurableStore(DurabilityConfig(
+                dir=engine_cfg.durable_dir,
+                fsync=engine_cfg.wal_fsync,
+                snapshot_interval=engine_cfg.snapshot_interval,
+                keep_snapshots=engine_cfg.keep_snapshots,
+            ), obs=self.obs)
+            # shed and evict decisions leave records beside the admissions
+            self.scheduler.wal_sink = self.durability.log_event
 
     # -- admission -------------------------------------------------------------
 
@@ -322,15 +340,24 @@ class ServeEngine:
 
     def run(self, workload: List[List[Request]], max_steps: int = 10_000):
         """Drive until the workload drains (or `max_steps`).  Returns
-        summary stats."""
+        summary stats.
+
+        A durable engine runs on the global step clock: `recover()` runs
+        first, and the workload is indexed by absolute engine step, so a
+        restarted process hands `run` the same whole workload and resumes
+        where the crash cut it."""
         from repro_torch.obs.profiling import trace_session
 
         t0 = time.time()
+        durable = self.durability is not None
+        if durable and not self._recovered:
+            self.recover()
         with trace_session(self.ecfg.profile_dir):
-            completed, step = self._run_loop(workload, max_steps)
+            completed, step, start = self._run_loop(workload, max_steps,
+                                                    durable)
         sst = self.scheduler.stats
         return {
-            "steps": step,
+            "steps": step - start,
             "completed": completed,
             "wall_s": time.time() - t0,
             "mode_trace": sst.mode_trace,
@@ -340,18 +367,33 @@ class ServeEngine:
             "recovered_windows": sst.recovered_windows,
         }
 
-    def _run_loop(self, workload, max_steps):
+    def _run_loop(self, workload, max_steps, durable):
         completed = 0
-        step = 0
+        start = self._step if durable else 0
+        step = start
         K = max(1, self.ecfg.sched_window)
         while step < max_steps:
+            # A durable window never straddles max_steps: its arrivals are
+            # logged as a unit, and "engine step == workload ticks consumed"
+            # is what a resumed run relies on.
+            Kw = min(K, max_steps - step) if durable else K
             arr = [
                 workload[step + i] if step + i < len(workload) else []
-                for i in range(K)
+                for i in range(Kw)
             ]
+            if durable:
+                self.durability.log_window(step, arr)
             done, nsteps = self._advance(arr, step, max_steps)
             completed += done
             step += nsteps
+            if durable:
+                # the heartbeat carries the last known counters
+                self._sync_registry()
+                self.durability.log_commit(
+                    self._step, health=self.obs.metrics.compact())
+                self.durability.window_committed()
+                if self.durability.should_snapshot():
+                    self.snapshot()
             if (
                 step >= len(workload)
                 and self.scheduler.pending == 0
@@ -359,7 +401,147 @@ class ServeEngine:
                 and all(r is None for r in self.active)
             ):
                 break
-        return completed, step
+        if durable:
+            # final snapshot: a clean restart replays nothing
+            self.snapshot()
+        return completed, step, start
+
+    # -- durability: snapshot / recover -----------------------------------------
+
+    def _snapshot_arrays(self) -> Dict[str, object]:
+        return {
+            "sched": self.scheduler.snapshot_arrays(),
+            "tokens": self.tokens,
+            "lengths": self.lengths,
+            "remaining": np.asarray(self.remaining),
+        }
+
+    def _restore_arrays(self, arrays: Dict[str, object]) -> None:
+        """`arrays` as `persist.load_tree` places them: `tokens` and
+        `lengths` on the engine's device, `remaining` in numpy."""
+        self.scheduler.restore_arrays(arrays["sched"])
+        self.tokens = arrays["tokens"]
+        self.lengths = arrays["lengths"]
+        self.remaining = np.asarray(arrays["remaining"], np.int64)
+
+    def _host_state(self) -> Dict[str, object]:
+        req = dataclasses.asdict
+        return {
+            "step": self._step,
+            "service_est": self._service_est,
+            "active": [None if r is None else req(r) for r in self.active],
+            "backlog": [req(r) for r in self._backlog],
+            "outputs": {str(u): v for u, v in self.outputs.items()},
+            "arrival_step": {
+                str(u): s for u, s in self.arrival_step.items()
+            },
+            "admit_step": {str(u): s for u, s in self.admit_step.items()},
+            "done_step": {str(u): s for u, s in self.done_step.items()},
+            "slo": {str(u): c for u, c in self.slo.items()},
+        }
+
+    def _load_host_state(self, d: Dict[str, object]) -> None:
+        self._step = int(d["step"])
+        self._service_est = float(d["service_est"])
+        self.active = [
+            None if rd is None
+            else Request(**{k: int(v) for k, v in rd.items()})
+            for rd in d["active"]
+        ]
+        self._backlog = [
+            Request(**{k: int(v) for k, v in rd.items()})
+            for rd in d["backlog"]
+        ]
+        self.outputs = {
+            int(u): [int(t) for t in v] for u, v in d["outputs"].items()
+        }
+        self.arrival_step = {
+            int(u): int(s) for u, s in d["arrival_step"].items()
+        }
+        self.admit_step = {
+            int(u): int(s) for u, s in d["admit_step"].items()
+        }
+        self.done_step = {int(u): int(s) for u, s in d["done_step"].items()}
+        self.slo = {int(u): int(c) for u, c in d["slo"].items()}
+
+    def snapshot(self):
+        """Crash-consistent snapshot of the whole serving state at the
+        current window boundary, the carry's fingerprint stamped into the
+        manifest.  The device tensors come back in one host read, which
+        the fingerprint is computed from too."""
+        from repro_torch.core.persist import host_tree
+        from repro_torch.core.smartpq import carry_fingerprint
+
+        arrays = host_tree(self._snapshot_arrays())
+        host = {
+            "engine": self._host_state(),
+            "scheduler": self.scheduler.host_state(),
+            "carry_crc": carry_fingerprint(arrays["sched"]["carry"]),
+        }
+        return self.durability.snapshot(self._step, arrays, host)
+
+    def recover(self) -> Dict[str, object]:
+        """Restore from the durable store: load the newest valid snapshot
+        (damaged ones are skipped with accounting), check the carry's
+        fingerprint, then replay the log's window suffix through
+        `_advance`, the path the original run took, so completions,
+        conservation counters and the carry reconverge with an
+        uninterrupted run.  Nothing happens on a fresh directory.  Called
+        by `run()`.  Replay runs each logged window whole (the original
+        `max_steps` is not re-applied)."""
+        from repro_torch.core.errors import SnapshotCorruptError
+        from repro_torch.core.persist import host_tree
+        from repro_torch.core.smartpq import carry_fingerprint
+        from repro_torch.serve.durability import request_from_dict
+
+        d = self.durability
+        info: Dict[str, object] = {
+            "snapshot_step": None, "replayed_windows": 0, "wal_records": 0,
+        }
+        loaded = d.load_newest_valid(self._snapshot_arrays())
+        base_step = 0
+        if loaded is not None:
+            snap_step, arrays, host = loaded
+            self._restore_arrays(arrays)
+            self._load_host_state(host["engine"])
+            self.scheduler.load_host_state(host["scheduler"])
+            if host.get("carry_crc") is not None:
+                got = carry_fingerprint(host_tree(self.scheduler.carry))
+                if got != host["carry_crc"]:
+                    self.obs.metrics.inc(
+                        "errors_total", code="SNAPSHOT_CORRUPT"
+                    )
+                    raise SnapshotCorruptError(
+                        f"carry fingerprint mismatch after restore "
+                        f"(manifest {host['carry_crc']:#x}, got {got:#x})",
+                        path=str(d.snap_root),
+                    )
+            base_step = self._step
+            info["snapshot_step"] = snap_step
+        records = d.read_wal()
+        info["wal_records"] = len(records)
+        windows = d.window_suffix(base_step)
+        d.suppress_events = True
+        try:
+            for rec in windows:
+                arr = [
+                    [request_from_dict(x) for x in tick]
+                    for tick in rec["arrivals"]
+                ]
+                self._advance(arr, int(rec["step0"]), 1 << 62)
+                d.stats.replayed_windows += 1
+                d.stats.replayed_records += 1
+        finally:
+            d.suppress_events = False
+        info["replayed_windows"] = len(windows)
+        self._recovered = True
+        self.obs.metrics.inc("engine_recoveries_total")
+        self.obs.tracer.instant(
+            "recovery", cat="durability",
+            snapshot_step=info["snapshot_step"],
+            replayed_windows=len(windows),
+        )
+        return info
 
     # -- structured health -------------------------------------------------------
 
@@ -435,7 +617,10 @@ class ServeEngine:
                 self.overload.snapshot() if self.overload is not None
                 else None
             ),
-            "durability": None,
+            "durability": (
+                self.durability.stats.as_dict()
+                if self.durability is not None else None
+            ),
         }
 
     # -- SLO accounting ----------------------------------------------------------

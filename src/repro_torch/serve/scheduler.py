@@ -188,6 +188,10 @@ class SmartPQScheduler:
         # on iff the queue's validate flag or a hook is set.
         self.validate_hook = validate_hook
         self._fb: Optional[SmartPQ] = None  # lazy conservative fallback
+        # Write-ahead-log sink (kind, payload) -> None: the durable engine
+        # sets it to `DurableStore.log_event`, so every shed and eviction
+        # leaves an audit record in the log beside the admissions.
+        self.wal_sink: Optional[Callable[[str, Dict], None]] = None
 
     def submit(self, reqs: List[Request]):
         for r in reqs:
@@ -252,6 +256,12 @@ class SmartPQScheduler:
             return arrivals
         kept, shed = self.overload.admit(arrivals)
         self.stats.shed += len(shed)
+        if shed and self.wal_sink is not None:
+            self.wal_sink("shed", {
+                "step": self._step,
+                "uids": [r.uid for r in shed],
+                "classes": [r.slo_class for r in shed],
+            })
         return kept
 
     def _enforce_backlog_cap(self) -> None:
@@ -261,6 +271,12 @@ class SmartPQScheduler:
         for r in evicted:
             self._requests.pop(r.uid, None)
         self.stats.evicted += len(evicted)
+        if evicted and self.wal_sink is not None:
+            self.wal_sink("evict", {
+                "step": self._step,
+                "uids": [r.uid for r in evicted],
+                "classes": [r.slo_class for r in evicted],
+            })
 
     def _mode_override(self) -> int:
         return self.overload.mode_override() if self.overload else -1

@@ -193,9 +193,15 @@ def replay(pq, trace: Trace, carry=None, draws=None, generator=None):
         generator = torch.Generator(device=dev).manual_seed(int(trace.seed))
     if draws is not None:
         draws = tuple(d.to(dev) for d in draws)
+    keys = np.asarray(trace.keys)
+    if keys.dtype.kind == "f":
+        # a float batch, as recorded: the window's admission check rejects
+        # its non-finite keys (`ops.sanitize_keys`)
+        keys = torch.as_tensor(np.array(keys, np.float32), device=dev)
+    else:
+        keys = _int32_on(keys, dev)
     carry, res = pq.run_window(
-        carry, *(_int32_on(a, dev) for a in (trace.ops, trace.keys,
-                                              trace.vals)),
+        carry, _int32_on(trace.ops, dev), keys, _int32_on(trace.vals, dev),
         draws=draws, num_clients=_int32_on(trace.num_clients, dev),
         generator=generator,
     )

@@ -642,3 +642,99 @@ def test_engine_run_on_the_card_equals_the_cpu(K):
                     carry_to_numpy(cpu.scheduler.carry)):
         for f in x:
             np.testing.assert_array_equal(x[f], y[f], err_msg=f)
+
+
+# ---------------------------------------------------------------------------
+# durable serving
+# ---------------------------------------------------------------------------
+
+
+def _durable(root, device, draws=None, tree=None, K=4, seed=3):
+    return ServeEngine(None, None, EngineConfig(
+        batch_size=8, sched_window=K, durable_dir=str(root),
+        snapshot_interval=3), seed=seed, device=device, tree=tree,
+        draws=draws)
+
+
+def _durable_prints(eng):
+    from repro_torch.core.smartpq import carry_fingerprint
+
+    return (dict(eng.done_step), dict(eng.outputs),
+            carry_fingerprint(eng.scheduler.carry),
+            {k: v for k, v in eng.health().items() if k != "durability"})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("K", [1, 4])
+def test_durable_pause_resume_on_the_card_equals_the_cpu(tmp_path, K):
+    """A durable run on the card with injected draws, paused at step 8 and
+    resumed by a fresh engine from its snapshot, ends equal to the same
+    run uninterrupted on the CPU: done steps, outputs, fingerprint, health."""
+    dev = _card()
+    draws = _serve_draws(400)
+    wl = lambda: traces.bursty_serve_workload(steps=24, seed=3)  # noqa: E731
+    first = _durable(tmp_path / "g", dev, draws, K=K)
+    tree = first.scheduler.pq.tree
+    first.run(wl(), max_steps=8)
+    assert first._step == 8
+    first.durability.close()
+    resumed = _durable(tmp_path / "g", dev, draws, tree, K=K)
+    resumed.run(wl(), max_steps=100_000)
+    cpu = _durable(tmp_path / "c", "cpu", draws, tree, K=K)
+    cpu.run(wl(), max_steps=100_000)
+    assert _durable_prints(resumed) == _durable_prints(cpu)
+    assert resumed.health()["completed"] > 0
+    for e in (resumed, cpu):
+        e.durability.close()
+
+
+@pytest.mark.gpu
+def test_durable_generator_run_resumes_on_the_card(tmp_path):
+    """The scheduler's own CUDA generator (no draws): a durable run paused
+    at step 8 and resumed by a fresh engine draws exactly what the same
+    run draws uninterrupted on the card."""
+    dev = _card()
+    wl = lambda: traces.bursty_serve_workload(steps=24, seed=3)  # noqa: E731
+    whole = _durable(tmp_path / "w", dev)
+    tree = whole.scheduler.pq.tree
+    whole.run(wl(), max_steps=100_000)
+    first = _durable(tmp_path / "p", dev, tree=tree)
+    first.run(wl(), max_steps=8)
+    first.durability.close()
+    resumed = _durable(tmp_path / "p", dev, tree=tree)
+    resumed.run(wl(), max_steps=100_000)
+    assert _durable_prints(resumed) == _durable_prints(whole)
+    for e in (whole, resumed):
+        e.durability.close()
+
+
+@pytest.mark.gpu
+def test_snapshot_reads_the_card_once_and_loads_back_onto_it(tmp_path):
+    """`persist.host_tree` reads a card carry in one host read;
+    `load_tree` puts the carry leaves back on the card and the CUDA
+    generator's state on the CPU, as `Generator.set_state` takes it."""
+    from repro_torch.core import persist
+    from repro_torch.core.smartpq import carry_fingerprint
+    from repro_torch.utils import hostsync
+
+    dev = _card()
+    eng = ServeEngine(None, None, EngineConfig(batch_size=4), device=dev)
+    eng.run(traces.bursty_serve_workload(steps=8, seed=1), max_steps=40)
+    like = eng._snapshot_arrays()
+    syncs = hostsync.SYNCS["count"]
+    host = persist.host_tree(like)
+    assert hostsync.SYNCS["count"] == syncs + 1
+    persist.save_tree(tmp_path, 1, host)
+    got, _ = persist.load_tree(tmp_path, like)
+    assert got["sched"]["carry"].state.head_keys.device.type == "cuda"
+    assert got["tokens"].device.type == "cuda"
+    assert got["sched"]["generator"].device.type == "cpu"
+    assert got["sched"]["generator"].dtype == torch.uint8
+    assert carry_fingerprint(got["sched"]["carry"]) == carry_fingerprint(
+        host["sched"]["carry"]) == carry_fingerprint(eng.scheduler.carry)
+    gen = torch.Generator(device=dev)
+    gen.set_state(got["sched"]["generator"])
+    assert torch.equal(torch.randint(0, 1 << 30, (8,), device=dev,
+                                     generator=gen),
+                       torch.randint(0, 1 << 30, (8,), device=dev,
+                                     generator=eng.scheduler._gen))

@@ -2,6 +2,7 @@
 runs on the card unless told otherwise, and its chip smoke script refuses to
 report a result without a card or without the repository beside it."""
 
+import json
 import os
 import re
 import shutil
@@ -32,10 +33,16 @@ def test_importing_the_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'repro')]\n"
         "print(len(bad), bad[:5])\n"
+        "print(sorted(m for m in sys.modules if m in (\n"
+        "    'repro_torch.faults', 'repro_torch.serve.durability',\n"
+        "    'repro_torch.serve.supervisor', 'repro_torch.serve.worker')))\n"
     )
     out = _python(code)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("0 "), out.stdout
+    assert out.stdout.splitlines()[1] == str(sorted([
+        "repro_torch.faults", "repro_torch.serve.durability",
+        "repro_torch.serve.supervisor", "repro_torch.serve.worker"]))
 
 
 def test_port_sources_name_no_jax_and_no_jax_package():
@@ -103,6 +110,46 @@ def test_serving_runs_on_the_card_by_default():
             make()
     eng = ServeEngine(None, None, EngineConfig(batch_size=2), device="cpu")
     assert eng.scheduler.carry.state.device.type == "cpu"
+
+
+def test_worker_and_supervisor_run_on_the_card_by_default(tmp_path):
+    """`python -m repro_torch.serve.worker` with no --device runs on the
+    card: without one it refuses, and the supervisor's circuit breaker
+    opens over the refusing child instead of restarting it forever."""
+    from repro_torch.core.errors import CrashLoopError
+    from repro_torch.serve import Supervisor, SupervisorConfig
+
+    argv = ["-m", "repro_torch.serve.worker", "--dir", str(tmp_path / "d"),
+            "--out", str(tmp_path / "r.json"), "--steps", "4"]
+    out = _python(argv, timeout=300)
+    if torch.cuda.is_available():
+        assert out.returncode == 0, out.stderr
+        result = json.loads((tmp_path / "r.json").read_text())
+        assert result["conservation"]["admitted_ok"]
+        return
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert not (tmp_path / "r.json").exists()
+    sup = Supervisor([sys.executable, *argv], tmp_path / "d" / "hb.json",
+                     SupervisorConfig(max_restarts=0, backoff_base=0.01,
+                                      poll_interval=0.02),
+                     env={"PYTHONPATH": str(ROOT / "src")})
+    with pytest.raises(CrashLoopError) as err:
+        sup.run()
+    assert err.value.exit_codes == [1]
+
+
+def test_port_injectors_are_the_references_and_all_tested():
+    """The port's `INJECTORS` has the reference's names, and each is named
+    in tests/test_torch_faults.py (the port's tests/test_hygiene.py::
+    test_every_fault_injector_is_exercised)."""
+    from repro.faults import INJECTORS as JINJECTORS
+    from repro_torch.faults import INJECTORS
+
+    assert list(INJECTORS) == list(JINJECTORS)
+    chaos_src = (ROOT / "tests" / "test_torch_faults.py").read_text()
+    missing = [name for name in INJECTORS if name not in chaos_src]
+    assert missing == [], f"injectors no test names: {missing}"
 
 
 def test_chip_smoke_gives_no_result_without_card_or_repo(tmp_path):

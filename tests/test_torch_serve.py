@@ -421,14 +421,21 @@ def test_engine_run_matches_jax(tree, K):
     _carry_equal(ref.scheduler.carry, eng.scheduler.carry)
 
 
-def test_engine_refuses_what_is_not_ported(tree):
-    """A model config and the durable engine raise, naming their ROADMAP
-    items, instead of running something else."""
+def test_engine_refuses_what_is_not_ported(tree, tmp_path):
+    """A model config raises, naming its ROADMAP item, instead of running
+    something else; the durable engine (`durable_dir`), ported since, runs
+    and reports its store in `health()`."""
     with pytest.raises(NotImplementedError, match="item 8"):
         ServeEngine(object(), None, EngineConfig(), device="cpu", tree=tree)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ServeEngine(None, None, EngineConfig(durable_dir="/nonexistent"),
-                    device="cpu", tree=tree)
+    eng = ServeEngine(None, None, EngineConfig(
+        batch_size=4, sched_window=4, durable_dir=str(tmp_path / "d")),
+        device="cpu", tree=tree)
+    wl = bursty_serve_workload(steps=8, seed=2)
+    assert eng.run(wl, max_steps=400)["completed"] == sum(map(len, wl))
+    dur = eng.health()["durability"]
+    assert dur["commits"] > 0 and dur["snapshots_written"] > 0
+    assert (tmp_path / "d" / "wal.log").exists()
+    eng.durability.close()
 
 
 def test_engine_windows_drain_and_draws_run_out(tree):
