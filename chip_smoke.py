@@ -91,7 +91,24 @@ non-zero before its last line):
               controlled workload as a durable run paused at step 8 and
               resumed, equal to the uninterrupted run on the card and on
               the CPU;
-  12. the total time; then the kernels JSON line, the card line, and the
+  12. path I  the distributed PQ and Nuddle (`core/pqueue/dist.py`,
+              `core/nuddle.py`, `distributed/`) on path B's queue (16 shards
+              x 2^17 slots, 1,048,576 keys, 64 inserts a step, m = 64): I1
+              one rank on a (1, 1) (pod, shard) mesh over NCCL, 4 steps of
+              `insert_dist` and each of the five `DIST_SCHEDULE_FNS` on one
+              carry, every leaf and output equal to the single-controller
+              run with the same draws; I2 eight rank processes on the card
+              over gloo with host-staged payloads (NCCL refuses two ranks on
+              one GPU), a (2, 4) mesh with 2 shards a rank: flat == hier ==
+              ffwd on every leaf and equal to the single controller's
+              STRICT_FLAT, MULTIQ and spray conserving keys with no
+              collective, `delegate_dist` equal to
+              `delegate_single_controller`, the pod-aware collectives (tests/
+              device_scripts/{dist_pq_check,multiq_8dev,collectives_check}
+              .py), then which collectives gloo takes on CUDA tensors as
+              they are; I3 Nuddle's `delegate_single_controller` and a K = 8
+              `delegate_window` on I1's final state, card against CPU;
+  13. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -100,7 +117,10 @@ launch (`PATH_KERNELS`) and that no `run_window` call of the path launched
 fails the run (prefill launches do not count towards this).  On paths E and
 F a driver's step counts as a window of one step, and a replay's steps
 count alike; on paths G and H an engine tick does (path H counts its
-engine runs and recoveries in this process, not its worker processes).
+engine runs and recoveries in this process, not its worker processes); on
+path I a distributed step or a delegation round does, and its launches are
+those of this process's distributed calls and delegations plus those of
+I2's eight rank processes, each counted from 0 just before its steps.
 `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/, path H's stores to build/chip_smoke/durable/.  The
@@ -137,10 +157,12 @@ def log(msg: str) -> None:
 # (src/repro/kernels/registry.py:481-546), then the main path's shapes.
 TOPK_SHAPES = [
     ((8, 256, 16), "validation"), ((3, 100, 7), "validation"),
-    ((1, 64, 64), "validation"), ((5, 1024, 128), "validation"),
-    ((1, 1424, 64), "main: SPRAY tournament"),
+    ((1, 64, 64), "validation; main: path I1 HIER pod select"),
+    ((5, 1024, 128), "validation"),
+    ((1, 1424, 64), "main: SPRAY tournament; path I1 spray"),
     ((2, 512, 64), "main: HIER pod semifinal"),
-    ((1, 128, 64), "main: HIER final"),
+    ((1, 128, 64), "main: HIER final; path I2 local candidates, FFWD "
+                   "merges, delegate_dist; path I3 combines"),
     ((1, 1312, 57), "main: path C Fig. 11 SPRAY"),
     ((2, 456, 57), "main: path C Fig. 11 HIER semifinal"),
     ((1, 114, 57), "main: path C Fig. 11 HIER final"),
@@ -158,8 +180,10 @@ TOPK_SHAPES = [
     ((1, 2048, 128), "main: path F STRICT_FLAT"),
     ((16, 4096, 64), "registry tuning shape"),
     ((1, 1024, 64), "registry tuning shape; main: path G STRICT_FLAT "
-                    "fallback"),
+                    "fallback; path I1 local candidates"),
     ((1, 512, 64), "registry tuning shape"),
+    ((1, 256, 64), "main: path I2 HIER pod select (4 ranks x m = 64)"),
+    ((1, 24, 8), "main: path I2 rank spray (S_loc = 2, m_loc = 8)"),
     ((2, 2048, 300), "run wider than registers (k' = 512)"),
 ]
 ELIM_SHAPES = [
@@ -179,7 +203,8 @@ ELIM_SHAPES = [
 MERGE_SHAPES = [
     ((4, 64, 16), "validation"), ((2, 256, 7), "validation"),
     ((6, 100, 60), "validation"), ((3, 8, 8), "validation"),
-    ((16, 256, 64), "main: step insert; path G tick insert"),
+    ((16, 256, 64), "main: step insert; path G tick insert; path I1 "
+                    "insert_dist"),
     ((16, 256, 57), "main: path C Fig. 11 step insert"),
     ((16, 256, 22), "main: path C Fig. 10 c_mix step insert"),
     ((16, 256, 4096), "main: prefill insert"),
@@ -187,21 +212,25 @@ MERGE_SHAPES = [
     ((16, 256, 144), "main: path E adaptive step insert"),
     ((16, 256, 1), "main: path E source insert"),
     ((16, 256, 128), "main: path F step insert"),
-    ((16, 256, 32512), "main: path F prefill slice"),
-    ((16, 256, 8192), "main: path F prefill last slice"),
+    ((16, 256, 32512), "main: path F, path I1 prefill slice"),
+    ((16, 256, 8192), "main: path F, path I1 prefill last slice"),
+    ((2, 256, 64), "main: path I2 rank insert_dist"),
+    ((2, 256, 32512), "main: path I2 rank prefill slice"),
 ]
 # (S, m): validation shapes (src/repro/kernels/registry.py:516-533), then
-# the MULTIQ steps of paths C and D
+# the MULTIQ steps of the paths
 TWOCHOICE_SHAPES = [
-    ((4, 16), "validation"), ((16, 64), "validation; main: paths D, G"),
+    ((4, 16), "validation"), ((16, 64), "validation; main: paths D, G, I1"),
     ((8, 5), "validation"), ((16, 57), "main: path C Fig. 11 trace"),
     ((16, 22), "main: path C Fig. 10 c_mix trace"),
     ((16, 128), "main: path F MULTIQ step"),
     ((16, 144), "main: path E adaptive MULTIQ step"),
+    ((2, 8), "main: path I2 rank MULTIQ (S_loc = 2, m_loc = 8)"),
 ]
 MULTIQ_SHAPES = [
-    ((4, 16), "validation"), ((16, 64), "validation; main: paths D, G"),
-    ((2, 8), "validation"), ((16, 57), "main: path C Fig. 11 trace"),
+    ((4, 16), "validation"), ((16, 64), "validation; main: paths D, G, I1"),
+    ((2, 8), "validation; main: path I2 rank MULTIQ"),
+    ((16, 57), "main: path C Fig. 11 trace"),
     ((16, 22), "main: path C Fig. 10 c_mix trace"),
     ((16, 128), "main: path F MULTIQ step"),
     ((16, 144), "main: path E adaptive MULTIQ step"),
@@ -497,6 +526,8 @@ PATH_KERNELS = {
     "G": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
           "multiq_select"),
     "H": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
+          "multiq_select"),
+    "I": ("windowed_merge", "topk_smallest", "twochoice_pick",
           "multiq_select"),
 }
 PREFILL_BATCH = 4096
@@ -1031,19 +1062,22 @@ def _modes_line(modes) -> str:
         f"{runs}" if len(runs) <= 12 else f"{runs[:12]} ... ({len(runs)})")
 
 
-def _same_arrays(what, got, want):
+def _same_arrays(what, got, want, between="between the card and the CPU"):
+    """Bit-equality of two arrays or tensors (on any device)."""
     import numpy as np
 
-    got, want = np.asarray(got), np.asarray(want)
+    got, want = (np.asarray(x.cpu() if hasattr(x, "cpu") else x)
+                 for x in (got, want))
     if got.dtype != want.dtype or not np.array_equal(got, want):
-        raise AssertionError(f"{what} differs between the card and the CPU")
+        raise AssertionError(f"{what} differs {between}")
 
 
-def _same_carry(what, got, want):
-    """`got` and `want` are carries as `convert.carry_to_numpy` gives them."""
+def _same_carry(what, got, want, between="between the card and the CPU"):
+    """`got` and `want` are carries as `convert.carry_to_numpy` gives them
+    (or any sequences of field-name dicts, as `state_to_numpy` gives)."""
     for g, w in zip(got, want):
         for f in g:
-            _same_arrays(f"{what}: carry field {f}", g[f], w[f])
+            _same_arrays(f"{what}: carry field {f}", g[f], w[f], between)
 
 
 def path_e(cfg=PATH_E, device=None):
@@ -2214,6 +2248,505 @@ def path_h(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: path I, the distributed PQ and Nuddle
+# ---------------------------------------------------------------------------
+
+# Path I: path B's queue (benchmarks/fig9_grid.py:30-37) as a distributed
+# queue: 16 shards of 2^17 slots, 1,048,576 keys placed by hash, 64 inserts
+# a step (8 a rank on the (2, 4) mesh), exact deletes of m = 64, spray and
+# MULTIQ at m_loc = 64 on one rank and 8 a rank on eight
+PATH_I = dict(S=16, C=1 << 17, prefill=1 << 20, key_range=1 << 21, steps=4,
+              mesh=(2, 4), B_loc=8, m=64, active=(64, 48, 64, 17), m_loc=8,
+              active_loc=(8, 8, 5, 8), capacity_factor=8.0, seed=0,
+              rounds=8, nuddle_n=48, spawn_timeout=600)
+SCHEDULES = ("flat", "hier", "ffwd", "spray", "multiq")
+
+
+def _dist_fns():
+    from repro_torch.core.pqueue import dist as D
+
+    return dict(zip(SCHEDULES, (D.delete_flat_dist, D.delete_hier_dist,
+                                D.delete_ffwd_dist, D.delete_spray_dist,
+                                D.delete_multiq_dist)))
+
+
+def _i_keys(cfg):
+    """The prefill's keys and values, and each step's inserts (steps,
+    ranks, B_loc): the same numbers in every process."""
+    import numpy as np
+
+    rng = np.random.default_rng(cfg["seed"])
+    n_dev = cfg["mesh"][0] * cfg["mesh"][1]
+    shape = (cfg["steps"], n_dev, cfg["B_loc"])
+    return (rng.integers(0, cfg["key_range"], cfg["prefill"]).astype(np.int32),
+            rng.integers(0, 1 << 20, cfg["prefill"]).astype(np.int32),
+            rng.integers(0, cfg["key_range"], shape).astype(np.int32),
+            rng.integers(0, 1 << 20, shape).astype(np.int32))
+
+
+def _run_counted(device, fn, *args, **kw):
+    """(fn's result, seconds); the kernel launches go to WINDOW_LAUNCHES."""
+    from repro_torch.kernels import ops as KO
+
+    before = dict(KO.LAUNCHES)
+    _sync(device)
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    _sync(device)
+    dt = time.perf_counter() - t0
+    for name, n in KO.LAUNCHES.items():
+        WINDOW_LAUNCHES[name] = WINDOW_LAUNCHES.get(name, 0) + n - before[name]
+    return out, dt
+
+
+def _same_result(what, got, want, between="from the single controller's",
+                 names=("keys", "vals", "n")):
+    """A (state, *outputs) result of a `*_dist` call, bit-equal on every
+    state leaf and output to `want`'s."""
+    from repro_torch.convert import state_to_numpy
+
+    _same_carry(what, [state_to_numpy(got[0])], [state_to_numpy(want[0])],
+                between)
+    for name, g, w in zip(names, got[1:], want[1:]):
+        _same_arrays(f"{what}: {name}", g, w, between)
+
+
+def _multiset(state):
+    import numpy as np
+
+    k = state.keys.cpu().numpy()
+    return np.sort(k[k < INF_KEY])
+
+
+def _twin_draws(gen, name, state, m):
+    """The draws the rank's generator `gen` is about to make for the spray
+    or MULTIQ schedule `name`, drawn from a copy of it."""
+    import torch
+
+    from repro_torch.core.pqueue import schedules as SCH
+
+    twin = torch.Generator(device=state.device)
+    twin.set_state(gen.get_state())
+    return SCH.schedule_draws(
+        SCH.Schedule.SPRAY_HERLIHY if name == "spray" else SCH.Schedule.MULTIQ,
+        None, state.num_shards, m, state.head_width, generator=twin,
+        device=state.device)
+
+
+def path_i1(cfg=PATH_I, device="cuda"):
+    """I1: one rank on a (1, 1) (pod, shard) mesh with NCCL (gloo on the
+    CPU), S_loc = 16: 4 steps of `insert_dist` and each of the five
+    DIST_SCHEDULE_FNS, all on one carry, every state leaf and output equal
+    to the single-controller run (`ops.insert`; `delete_min(STRICT_FLAT)`
+    for the exact schedules, `delete_spray_herlihy` and `delete_multiq` at
+    npods=1 with the same draws).  Returns the initial and final states
+    and the prefill's kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.pqueue import ops as O
+    from repro_torch.core.pqueue import schedules as SCH
+    from repro_torch.core.pqueue.dist import (AxisCfg, insert_dist,
+                                              rank_generator)
+    from repro_torch.core.pqueue.state import make_state
+    from repro_torch.distributed import make_mesh
+    from repro_torch.kernels import ops as KO
+    from repro_torch.workloads import traces as TR
+
+    dev = torch.device(device)
+    keys, vals, step_k, step_v = _i_keys(cfg)
+    before = dict(KO.LAUNCHES)
+    t0 = time.perf_counter()
+    st0 = TR.prefill(make_state(cfg["S"], cfg["C"], device=dev), keys, vals)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    prefill_launches = {k: n - before[k] for k, n in KO.LAUNCHES.items()}
+    m, fns = cfg["m"], _dist_fns()
+    sc = {"flat": lambda st, a, d: O.delete_min(st, m, SCH.Schedule.STRICT_FLAT,
+                                                active=a),
+          "spray": lambda st, a, d: SCH.delete_spray_herlihy(st, m, a, d, 1),
+          "multiq": lambda st, a, d: SCH.delete_multiq(st, m, a, d, 1)}
+    sc["hier"] = sc["ffwd"] = sc["flat"]
+    times = {name: [] for name in ("insert",) + SCHEDULES}
+    counts, before = {}, dict(WINDOW_LAUNCHES)
+    with make_mesh((1, 1), ("pod", "shard"), device=dev) as mesh:
+        acfg = AxisCfg(("shard",), "pod", mesh=mesh)
+        _warm_up(st0, step_k[0].reshape(-1), step_v[0].reshape(-1), cfg, acfg,
+                 m, cfg["active"][0])
+        gen = rank_generator(cfg["seed"], acfg)
+        st_d = st_s = st0
+        for t in range(cfg["steps"]):
+            k = torch.as_tensor(step_k[t].reshape(-1), device=dev)
+            v = torch.as_tensor(step_v[t].reshape(-1), device=dev)
+            mask = torch.ones_like(k, dtype=torch.bool)
+            mesh.reset_counts()
+            (st_d, dropped, rejected), dt = _run_counted(
+                dev, insert_dist, st_d, k, v, mask, acfg,
+                cfg["capacity_factor"])
+            counts["insert"] = dict(mesh.counts)
+            times["insert"].append(dt)
+            st_s, dropped_s = O.insert(st_s, k, v, mask=mask)
+            if bool(rejected.any()):
+                raise AssertionError("path I1: insert_dist rejected lanes")
+            _same_result(f"path I1 step {t} insert_dist",
+                         (st_d, dropped), (st_s, dropped_s),
+                         names=("dropped",))
+            active = torch.tensor(cfg["active"][t], dtype=torch.int32,
+                                  device=dev)
+            for name in SCHEDULES:
+                # the single controller takes the draws the rank's
+                # generator is about to make
+                draws = (_twin_draws(gen, name, st_s, m)
+                         if name in ("spray", "multiq") else None)
+                mesh.reset_counts()
+                got, dt = _run_counted(dev, fns[name], st_d, m, active, None,
+                                       acfg, generator=gen)
+                counts[name] = dict(mesh.counts)
+                times[name].append(dt)
+                res = sc[name](st_s, active, draws)
+                _same_result(f"path I1 step {t} {name}", got,
+                             (res.state, res.keys, res.vals, res.n_out))
+                st_d, st_s = got[0], res.state
+        transport = mesh.transport
+    launches = {k: n - before.get(k, 0) for k, n in WINDOW_LAUNCHES.items()
+                if n - before.get(k, 0)}
+    med = {k: float(np.median(v)) * 1e6 for k, v in times.items()}
+    log(f"[12 path I1] one rank, {transport}, mesh (1, 1) (pod, shard), "
+        f"S_loc={cfg['S']} C={cfg['C']}, {cfg['prefill']} keys in "
+        f"{prefill_s:.2f}s ({ {k: n for k, n in prefill_launches.items() if n} }"
+        f" launches) | {cfg['steps']} steps of insert_dist (B=64) and "
+        f"the five schedules (m={m}) on one carry, every state leaf and "
+        f"output equal to the single-controller run | us a step, median "
+        f"(all): " + "; ".join(
+            f"{k} {med[k]:.1f} ({[round(x * 1e6, 1) for x in times[k]]})"
+            for k in times) + " | collectives a call: " + "; ".join(
+            f"{k} {_counts_text(c)}" for k, c in counts.items())
+        + f" | launches in the distributed calls {launches}")
+    return st0, st_d, prefill_launches
+
+
+def _warm_up(state, keys, vals, cfg, acfg, m_spray, active_spray):
+    """One untimed, uncounted call of insert_dist and of each schedule at
+    the shapes of the calls that follow (the collectives' first set-up, the
+    first launches); results dropped."""
+    import torch
+
+    from repro_torch.core.pqueue.dist import insert_dist, rank_generator
+
+    dev = acfg.mesh.device
+    k = torch.as_tensor(keys, device=dev)
+    state, _, _ = insert_dist(state, k, torch.as_tensor(vals, device=dev),
+                              torch.ones_like(k, dtype=torch.bool), acfg,
+                              cfg["capacity_factor"])
+    gen = rank_generator(cfg["seed"] + 1, acfg)
+    for name, fn in _dist_fns().items():
+        spray = name in ("spray", "multiq")
+        fn(state, m_spray if spray else cfg["m"],
+           active_spray if spray else cfg["active"][0], None, acfg,
+           generator=gen)
+    _sync(dev)
+
+
+def _counts_text(counts):
+    return ", ".join(f"{kind}{list(axes)} x{n}" for (kind, axes), n in
+                     sorted(counts.items())) or "none"
+
+
+def i2_rank(mesh, cfg):
+    """One rank of I2 (run by `spawn`): place the prefill's keys by hash,
+    then `cfg["steps"]` steps of `insert_dist` (8 keys a rank) and flat,
+    HIER and FFWD from the same state (equal on every leaf; the carry goes
+    on with flat's), with MULTIQ and spray on the side (no collective,
+    keys conserved, MULTIQ's pops within the rank's first m_loc head slots,
+    and each equal on every leaf and output to the single controller's
+    call at npods=1 on a CPU copy of the rank's state with the same draws,
+    the plain versions of the kernels); then Nuddle's `delegate_dist` on
+    the final state and the pod-aware collectives.  A failed check raises,
+    which fails the rank."""
+    import numpy as np
+    import torch
+
+    from repro_torch.convert import state_from_numpy, state_to_numpy
+    from repro_torch.core import nuddle as N
+    from repro_torch.core.pqueue import schedules as SCH
+    from repro_torch.core.pqueue.dist import (AxisCfg, insert_dist,
+                                              rank_generator)
+    from repro_torch.core.pqueue.state import make_state
+    from repro_torch.distributed import collectives as DC
+    from repro_torch.kernels import ops as KO
+    from repro_torch.utils.hashing import shard_of_key
+    from repro_torch.workloads import traces as TR
+
+    dev, r = mesh.device, mesh.rank
+    S_loc = cfg["S"] // mesh.size
+    keys, vals, step_k, step_v = _i_keys(cfg)
+    mine = (shard_of_key(torch.as_tensor(keys), cfg["S"]) // S_loc
+            == r).numpy()
+    # INF pads the rank's keys to whole prefill slices, which the insert
+    # skips: every rank merges at one shape
+    st = make_state(S_loc, cfg["C"], device=dev)
+    width = KO.MAX_MERGE_WINDOW - st.head_width
+    n_pad = -(-int(mine.sum()) // width) * width
+    pk = np.full(n_pad, INF_KEY, np.int32)
+    pv = np.zeros(n_pad, np.int32)
+    pk[:mine.sum()], pv[:mine.sum()] = keys[mine], vals[mine]
+    t0 = time.perf_counter()
+    st = TR.prefill(st, pk, pv)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+    acfg = AxisCfg(("shard",), "pod", mesh=mesh)
+    gen = rank_generator(cfg["seed"], acfg)
+    fns, m, m_loc = _dist_fns(), cfg["m"], cfg["m_loc"]
+    sc = {"spray": SCH.delete_spray_herlihy, "multiq": SCH.delete_multiq}
+    times = {name: [] for name in ("insert",) + SCHEDULES}
+    counts, flat_out = {}, []
+    _warm_up(st, step_k[0, r], step_v[0, r], cfg, acfg, m_loc,
+             cfg["active_loc"][0])
+    KO.reset_launches()
+    _sync(dev)
+    t_steps = time.perf_counter()
+    for t in range(cfg["steps"]):
+        k = torch.as_tensor(step_k[t, r], device=dev)
+        v = torch.as_tensor(step_v[t, r], device=dev)
+        mesh.reset_counts()
+        (st, dropped, rejected), dt = _run_counted(
+            dev, insert_dist, st, k, v, torch.ones_like(k, dtype=torch.bool),
+            acfg, cfg["capacity_factor"])
+        times["insert"].append(dt)
+        counts["insert"] = dict(mesh.counts)
+        if bool(rejected.any()) or int(dropped.sum()):
+            raise AssertionError(f"rank {r} step {t}: rejected or dropped")
+        out, want = {}, {}
+        for name in SCHEDULES:
+            src = out["flat"][0] if name in ("spray", "multiq") else st
+            active = cfg["active_loc" if name in sc else "active"][t]
+            if name in sc:
+                draws = _twin_draws(gen, name, src, m_loc)
+                res = sc[name](state_from_numpy(state_to_numpy(src), "cpu"),
+                               m_loc, torch.tensor(active, dtype=torch.int32),
+                               tuple(d.cpu() for d in draws), 1)
+                want[name] = (res.state, res.keys, res.vals, res.n_out)
+            mesh.reset_counts()
+            out[name], dt = _run_counted(
+                dev, fns[name], src, m_loc if name in sc else m, active, None,
+                acfg, generator=gen)
+            times[name].append(dt)
+            counts[name] = dict(mesh.counts)
+        for name in ("hier", "ffwd"):
+            _same_result(f"rank {r} step {t} {name}", out[name], out["flat"],
+                         "from flat's")
+        pre = out["flat"][0]
+        for name in sc:
+            _same_result(f"rank {r} step {t} {name}", out[name], want[name],
+                         "from the single controller's on the CPU")
+            post, ok, _, n = out[name]
+            got = ok.cpu().numpy()[:int(n)]
+            if counts[name]:
+                raise AssertionError(f"rank {r}: {name} issued "
+                                     f"{counts[name]}")
+            if not np.array_equal(np.sort(np.concatenate(
+                    [_multiset(post), got])), _multiset(pre)):
+                raise AssertionError(f"rank {r} step {t}: {name} lost keys")
+        heads = pre.head_keys[:, :m_loc].cpu().numpy().ravel()
+        if not np.isin(out["multiq"][1].cpu().numpy()[
+                :int(out["multiq"][3])], heads).all():
+            raise AssertionError(f"rank {r} step {t}: a MULTIQ pop lies "
+                                 f"outside the first {m_loc} head slots")
+        flat_out.append([x.cpu().numpy() for x in out["flat"][1:]])
+        st = pre
+    steps_s = time.perf_counter() - t_steps
+
+    # Nuddle: this rank's rows merged into one sorted run.
+    flat_keys = st.keys.reshape(-1)
+    order = torch.sort(flat_keys, stable=True).indices
+    local = {"keys": flat_keys[order], "vals": st.vals.reshape(-1)[order]}
+    mesh.reset_counts()
+    (_, verdict), nuddle_s = _run_counted(
+        dev, N.delegate_dist, N.pq_tournament_ops(), local, m, ("shard",),
+        "pod", ctx={"n": cfg["nuddle_n"]}, mesh=mesh)
+    counts["delegate_dist"] = dict(mesh.counts)
+    launches = dict(KO.LAUNCHES)
+
+    # one all_gather of 64 int32 over the 8 ranks: staged through host
+    # memory from the card (the mesh's), and of a CPU tensor (gloo alone)
+    gather_us, run_k = {}, out["flat"][1]
+    for where, src in (("staged", run_k), ("host", run_k.cpu())):
+        call = (lambda: mesh.all_gather(src, ("pod", "shard"))) if (
+            where == "staged") else (lambda: torch.distributed.all_gather(
+                [torch.empty_like(src) for _ in range(mesh.size)], src))
+        call()
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            call()
+        _sync(dev)
+        gather_us[where] = (time.perf_counter() - t0) / 20 * 1e6
+
+    # collectives_check.py on this mesh
+    x = np.random.default_rng(0).normal(size=(mesh.size, 64)).astype(
+        np.float32)
+    xr = torch.as_tensor(x[r], device=dev)
+    flat = mesh.psum(xr, ("pod", "shard"))
+    hier = DC.hierarchical_psum(xr, ("shard",), "pod", mesh=mesh)
+    if not torch.allclose(hier, flat, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"rank {r}: hierarchical psum != flat psum")
+    err, acc = torch.zeros_like(xr), torch.zeros_like(xr)
+    for _ in range(8):
+        out_c, err = DC.compressed_cross_pod_psum(xr, ("shard",), "pod", err,
+                                                  mesh=mesh)
+        acc += out_c
+    drift = float((acc - 8 * flat).abs().max() / (8 * flat).abs().max())
+    if drift >= 0.02:
+        raise AssertionError(f"rank {r}: error-feedback drift {drift}")
+    return {"flat_out": flat_out, "remaining": _multiset(st),
+            "verdict": verdict, "times": times, "counts": counts,
+            "launches": launches, "prefill_s": prefill_s,
+            "steps_s": steps_s, "nuddle_s": nuddle_s, "drift": drift,
+            "gather_us": gather_us,
+            "transport": mesh.transport, "held": int(mine.sum())}
+
+
+def path_i2(st0, cfg=PATH_I, device="cuda"):
+    """I2: eight ranks as processes on the one card, gloo with host-staged
+    payloads (NCCL refuses two ranks on one GPU), a (2, 4) (pod, shard)
+    mesh with S_loc = 2: `dist_pq_check.py`'s sequence and
+    `multiq_8dev.py`'s checks at full width (in each rank), flat equal to
+    the single-controller STRICT_FLAT run of the same steps from `st0` (the
+    same 1,048,576 keys on 16 shards), and Nuddle's `delegate_dist` verdict
+    equal to `delegate_single_controller`'s.  Returns the ranks' kernel
+    launches inside their steps and delegation, summed."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import nuddle as N
+    from repro_torch.core.pqueue import ops as O
+    from repro_torch.core.pqueue.schedules import Schedule
+    from repro_torch.distributed import spawn
+
+    dev = torch.device(device)
+    _, _, step_k, step_v = _i_keys(cfg)
+    st, sc_out = st0, []
+    for t in range(cfg["steps"]):
+        st, _ = O.insert(st, torch.as_tensor(step_k[t].reshape(-1),
+                                             device=dev),
+                         torch.as_tensor(step_v[t].reshape(-1), device=dev))
+        res = O.delete_min(st, cfg["m"], Schedule.STRICT_FLAT,
+                           active=cfg["active"][t])
+        sc_out.append(res[1:])
+        st = res.state
+    _, verdict = N.delegate_single_controller(
+        N.pq_tournament_ops(), {"keys": st.keys, "vals": st.vals}, cfg["m"],
+        npods=cfg["mesh"][0], ctx={"n": cfg["nuddle_n"]})
+
+    t0 = time.perf_counter()
+    ranks = spawn(i2_rank, cfg["mesh"], ("pod", "shard"), device=device,
+                  backend="gloo", args=(cfg,), timeout=cfg["spawn_timeout"])
+    wall = time.perf_counter() - t0
+    between = "from the single controller's"
+    for r, got in enumerate(ranks):
+        for t, (want, out) in enumerate(zip(sc_out, got["flat_out"])):
+            for name, w, g in zip(("keys", "vals", "n"), want, out):
+                _same_arrays(f"path I2 rank {r} step {t}: flat {name}", g, w,
+                             between)
+        _same_arrays(f"path I2 rank {r}: delegate_dist verdict",
+                     got["verdict"]["k"], verdict["k"],
+                     "from delegate_single_controller's")
+    _same_arrays("path I2: remaining multiset", np.sort(np.concatenate(
+        [g["remaining"] for g in ranks])), _multiset(st), between)
+    launches = {k: sum(g["launches"].get(k, 0) for g in ranks)
+                for k in ranks[0]["launches"]}
+    med = {k: float(np.median([x for g in ranks for x in g["times"][k]]))
+           * 1e6 for k in ranks[0]["times"]}
+    log(f"[12 path I2] {len(ranks)} rank processes on "
+        f"{'one card' if dev.type == 'cuda' else 'the CPU'}, "
+        f"{ranks[0]['transport']}, mesh {cfg['mesh']} (pod, shard), "
+        f"S_loc={cfg['S'] // len(ranks)}: keys held {[g['held'] for g in ranks]}"
+        f" (placed by hash, prefill {max(g['prefill_s'] for g in ranks):.2f}s"
+        f" at most) | {cfg['steps']} steps: flat == hier == ffwd on every "
+        f"leaf, flat's outputs and the final multiset equal to the single "
+        f"controller's STRICT_FLAT run; MULTIQ and spray conserve keys and "
+        f"equal the single controller's on a CPU copy with the same draws, "
+        f"MULTIQ pops within each rank's first {cfg['m_loc']} head slots, "
+        f"neither issues a collective; delegate_dist verdict equal to "
+        f"delegate_single_controller's; hierarchical psum == flat, "
+        f"compressed error-feedback drift over 8 steps "
+        f"{max(g['drift'] for g in ranks):.4f} (< 0.02) | wall {wall:.2f}s "
+        f"(processes started to results read), steps "
+        f"{max(g['steps_s'] for g in ranks):.3f}s at most | us a call "
+        f"({ranks[0]['transport']}; median over ranks and steps): "
+        + "; ".join(
+            f"{k} {v:.1f}" for k, v in med.items())
+        + f"; delegate_dist {np.median([g['nuddle_s'] for g in ranks]) * 1e6:.1f}"
+        + " | one all_gather of 64 int32 over the 8 ranks, us, median over "
+        "ranks of 20: the mesh's (staged on the card) and gloo's on a CPU "
+        "tensor: " + ", ".join(
+            f"{w} {np.median([g['gather_us'][w] for g in ranks]):.1f}"
+            for w in ("staged", "host"))
+        + " | collectives a call (rank 0): " + "; ".join(
+            f"{k} {_counts_text(c)}" for k, c in ranks[0]["counts"].items()))
+    for r, g in enumerate(ranks):
+        log(f"[12 path I2] rank {r}: launches "
+            f"{ {k: n for k, n in g['launches'].items() if n} }")
+    return launches
+
+
+def path_i3(state, cfg=PATH_I, device="cuda"):
+    """I3: Nuddle on the card against the CPU: `delegate_single_controller`
+    and a K-round `delegate_window` of `pq_tournament_ops` on I1's final
+    state, the same inputs on both: verdicts and states bit-identical."""
+    import torch
+
+    from repro_torch.core import nuddle as N
+
+    rounds = cfg["rounds"]
+    ns = torch.tensor([cfg["m"], cfg["nuddle_n"], 1, 0, cfg["m"], 17, 33,
+                       cfg["m"]][:rounds], dtype=torch.int32)
+    out, secs, before = {}, {}, dict(WINDOW_LAUNCHES)
+    for dev in (torch.device(device), torch.device("cpu")):
+        ls = {"keys": state.keys.to(dev), "vals": state.vals.to(dev)}
+        ops = N.pq_tournament_ops()
+        one, t1 = _run_counted(dev, N.delegate_single_controller, ops, ls,
+                               cfg["m"], 2, {"n": cfg["nuddle_n"]})
+        win, tw = _run_counted(dev, N.delegate_window, ops, ls, cfg["m"], 2,
+                               {"n": ns.to(dev)})
+        out[dev.type], secs[dev.type] = (one, win), (t1, tw)
+    for (a, b), what in zip(zip(out[device], out["cpu"]),
+                            ("delegate_single_controller",
+                             f"delegate_window K={rounds}")):
+        _same_carry(f"path I3 {what}", a, b)
+    t1, tw = secs[device]
+    log(f"[12 path I3] Nuddle pq_tournament_ops on I1's final state (16 "
+        f"shards x {state.capacity} slots, m={cfg['m']}, npods 2): "
+        f"delegate_single_controller {t1 * 1e6:.1f} us, delegate_window "
+        f"K={rounds} {tw * 1e6 / rounds:.1f} us a round on the {device}; "
+        f"verdicts and states bit-identical to the CPU run | launches "
+        f"{ {k: n - before.get(k, 0) for k, n in WINDOW_LAUNCHES.items() if n - before.get(k, 0)} }")
+    return 1 + rounds
+
+
+def path_i(cfg=PATH_I, device="cuda"):
+    """Phase 12: I1, I2 and I3.  The path's launch counts are those of its
+    own runs: I1's prefill, its distributed calls and I3's delegations in
+    this process, and the eight ranks' steps and delegation in I2, each
+    rank counted from 0 after its prefill and warm-up.  The
+    single-controller runs they are held against, the warm-ups and the
+    ranks' prefills stay out of them; per window they count the runs
+    alone (a distributed step or a delegation round is a window)."""
+    from repro_torch.kernels import ops as KO
+
+    counts_reset()
+    st0, st1, prefill_launches = path_i1(cfg, device)
+    rank_launches = path_i2(st0, cfg, device)
+    rounds = path_i3(st1, cfg, device)
+    for k, n in rank_launches.items():
+        WINDOW_LAUNCHES[k] = WINDOW_LAUNCHES.get(k, 0) + n
+    _, in_runs = counts_read("I")
+    launches = {k: in_runs.get(k, 0) + prefill_launches.get(k, 0)
+                for k in KO.LAUNCHES}
+    return launches, in_runs, cfg["steps"] + rounds
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2303,11 +2836,17 @@ def main() -> int:
     t0 = time.perf_counter()
     path_h_counts = path_h(tree)
     log(f"[11 path H] {time.perf_counter() - t0:.1f}s")
-    log(f"[12 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_i_counts = path_i()
+    log(f"[12 path I] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_i_counts[0]} (inside its distributed calls and delegations "
+        f"{path_i_counts[1]})")
+    log(f"[13 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
-        "G": path_g_counts, "H": path_h_counts}, phase2, floor)))
+        "G": path_g_counts, "H": path_h_counts, "I": path_i_counts}, phase2,
+        floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

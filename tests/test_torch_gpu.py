@@ -33,7 +33,10 @@ MERGE = [(4, 64, 16), (2, 256, 7), (6, 100, 60), (3, 8, 8), (16, 256, 64),
          # adaptive SSSP, 128 hold model), `traces.prefill`'s widest slice
          # and the last slice of a 1,048,576-event backlog
          (16, 256, 256), (16, 256, 144), (16, 256, 128), (16, 256, 32512),
-         (16, 256, 8192)]
+         (16, 256, 8192),
+         # a rank of the (2, 4) distributed queue (2 shards): its insert_dist
+         # and its prefill slice
+         (2, 256, 64), (2, 256, 32512)]
 TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         (1, 1424, 64), (2, 512, 64), (1, 128, 64),
         # path C's lane widths B = 57 and 22 (SPRAY, HIER semifinal, final)
@@ -48,7 +51,10 @@ TOPK = [(8, 256, 16), (3, 100, 7), (1, 64, 64), (5, 1024, 128),
         # and STRICT_FLAT)
         (2, 256, 32), (1, 64, 32), (1, 2704, 144), (2, 1152, 144),
         (1, 288, 144), (1, 2448, 128), (2, 1024, 128), (1, 256, 128),
-        (1, 2048, 128)]
+        (1, 2048, 128),
+        # a rank of the (2, 4) distributed queue: HIER's pod select over 4
+        # ranks at m = 64, and the spray at 2 shards and m_loc = 8
+        (1, 256, 64), (1, 24, 8)]
 SORT = [(1, 16), (4, 64), (6, 37), (8, 128), (64, 64),
         # path C's op logs (Fig. 11 Table 3, Fig. 10 c_mix); rows of 32 and
         # 256 words, the narrowest and widest register runs, and of 33, the
@@ -65,7 +71,9 @@ TWOCHOICE = [(4, 16), (16, 64), (8, 5), (16, 57), (16, 22),
              # than a warp has lanes: the block body
              (16, 128), (40, 100),
              # the adaptive SSSP step (B = 144)
-             (16, 144)]
+             (16, 144),
+             # a rank of the (2, 4) distributed queue (2 shards, m_loc = 8)
+             (2, 8)]
 MULTIQ = [(4, 16), (16, 64), (2, 8), (16, 57), (16, 22),
           # runs of 128 and 256 words in registers
           (4, 100), (3, 200),
@@ -738,3 +746,187 @@ def test_snapshot_reads_the_card_once_and_loads_back_onto_it(tmp_path):
                                      generator=gen),
                        torch.randint(0, 1 << 30, (8,), device=dev,
                                      generator=eng.scheduler._gen))
+
+
+# ---------------------------------------------------------------------------
+# the distributed PQ and Nuddle (chip_smoke.py path I at a small size)
+# ---------------------------------------------------------------------------
+
+
+def _dist_queue(dev, S=16, C=1 << 10, n=4096, seed=0):
+    from repro_torch.core.pqueue import ops as O
+    from repro_torch.core.pqueue.state import make_state
+
+    rng = np.random.default_rng(seed)
+    st, dropped = O.insert(
+        make_state(S, C, device=dev),
+        torch.as_tensor(rng.integers(0, 8192, n).astype(np.int32), device=dev),
+        torch.as_tensor(rng.integers(0, 99, n).astype(np.int32), device=dev))
+    assert int(dropped.sum()) == 0
+    return st
+
+
+def _equal_leaves(a, b, where):
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        assert x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), (where,
+                                                                     f.name)
+
+
+@pytest.mark.gpu
+def test_dist_schedules_on_the_card_equal_the_single_controller():
+    """Path I1 at a small size: one rank on a (1, 1) mesh over NCCL, steps
+    of `insert_dist` and each of the five distributed schedules on one
+    carry, every leaf and output equal to the single-controller run with
+    the same draws."""
+    from repro_torch.core.pqueue import dist as D
+    from repro_torch.core.pqueue import ops as O
+    from repro_torch.core.pqueue import schedules as SCH
+    from repro_torch.distributed import make_mesh
+
+    dev = _card()
+    st_d = st_s = _dist_queue(dev)
+    rng = np.random.default_rng(1)
+    m = 32
+    sc = {Schedule.STRICT_FLAT: lambda st, a, d: O.delete_min(
+              st, m, Schedule.STRICT_FLAT, active=a),
+          Schedule.SPRAY_HERLIHY: lambda st, a, d: SCH.delete_spray_herlihy(
+              st, m, a, d, 1),
+          Schedule.MULTIQ: lambda st, a, d: SCH.delete_multiq(st, m, a, d, 1)}
+    sc[Schedule.HIER] = sc[Schedule.FFWD] = sc[Schedule.STRICT_FLAT]
+    with make_mesh((1, 1), ("pod", "shard")) as mesh:
+        assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+        cfg = D.AxisCfg(("shard",), "pod", mesh=mesh)
+        gen = D.rank_generator(3, cfg)
+        for t, active in enumerate((32, 20, 7)):
+            k = torch.as_tensor(rng.integers(0, 8192, 64).astype(np.int32),
+                                device=dev)
+            v = torch.as_tensor(rng.integers(0, 99, 64).astype(np.int32),
+                                device=dev)
+            st_d, dropped, rejected = D.insert_dist(
+                st_d, k, v, torch.ones_like(k, dtype=torch.bool), cfg)
+            st_s, _ = O.insert(st_s, k, v)
+            assert not bool(rejected.any())
+            _equal_leaves(st_d, st_s, f"insert {t}")
+            a = torch.tensor(active, dtype=torch.int32, device=dev)
+            for schedule, fn in D.DIST_SCHEDULE_FNS.items():
+                twin = torch.Generator(device=dev)
+                twin.set_state(gen.get_state())
+                draws = SCH.schedule_draws(schedule, None, 16, m,
+                                           st_s.head_width, generator=twin,
+                                           device=dev)
+                got = fn(st_d, m, a, None, cfg, generator=gen)
+                want = sc[schedule](st_s, a, draws)
+                _equal_leaves(got[0], want.state, f"{schedule.name} {t}")
+                for g, w in zip(got[1:], want[1:]):
+                    assert torch.equal(g, w), (schedule.name, t)
+                st_d, st_s = got[0], want.state
+
+
+@pytest.mark.gpu
+def test_staged_gloo_mesh_on_the_card_has_jax_layout():
+    """Eight rank processes on the card over gloo, payloads staged through
+    host memory: the collectives give the same layouts and sums as on the
+    CPU (tests/test_torch_collectives.py's rank function)."""
+    from repro_torch.distributed import spawn
+    from torch_dist_ranks import collectives
+
+    _card()
+    x = np.random.default_rng(0).normal(size=(8, 64)).astype(np.float32)
+    args = dict(shape=(2, 4), axes=("pod", "data"), args=(x, 8), timeout=300)
+    card = spawn(collectives, device="cuda", backend="gloo", **args)
+    cpu = spawn(collectives, device="cpu", **args)
+    for g, c in zip(card, cpu):
+        for key in g:
+            if key.startswith(("rank", "all_", "psum_scatter", "ppermute")):
+                np.testing.assert_array_equal(g[key], c[key], err_msg=key)
+        np.testing.assert_allclose(g["hier"], x.sum(0), 1e-5, 1e-5)
+        assert g["counts"] == c["counts"]
+
+
+@pytest.mark.gpu
+def test_gloo_takes_cuda_tensors_for_collectives_but_not_sends():
+    """What the installed torch's gloo does with CUDA tensors given as they
+    are, the reason a gloo mesh on the card stages every payload through
+    host memory: its collectives take them and give the right results, a
+    point-to-point send fails the rank (two ranks)."""
+    from repro_torch.distributed import spawn
+    from torch_dist_ranks import gloo_probe
+
+    _card()
+    args = dict(shape=(2,), axes=("dev",), device="cuda", backend="gloo",
+                timeout=180)
+    ar = np.arange(2, dtype=np.int32)
+    for r, got in enumerate(spawn(gloo_probe, args=(False,), **args)):
+        want = {"all_reduce": 2 * ar + 10, "broadcast": ar,
+                "all_gather": ar[None, :] + 10 * ar[:, None],
+                "reduce_scatter": np.array([2 * r + 10], np.int32),
+                "all_to_all_single": r + 10 * ar}
+        for name, w in want.items():
+            np.testing.assert_array_equal(got[name], w, err_msg=name)
+    with pytest.raises(RuntimeError):
+        spawn(gloo_probe, args=(True,), **args)
+
+
+@pytest.mark.gpu
+def test_nuddle_on_the_card_equals_the_cpu():
+    """Path I3 at a small size: `delegate_single_controller` and a K = 8
+    `delegate_window` of `pq_tournament_ops`, card against CPU."""
+    from repro_torch.core import nuddle as N
+
+    dev = _card()
+    st = _dist_queue(dev)
+    ns = torch.tensor([32, 20, 1, 0, 32, 17, 9, 32], dtype=torch.int32)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        ls = {"keys": st.keys.to(d), "vals": st.vals.to(d)}
+        before = KO.LAUNCHES["topk_smallest"]
+        one = N.delegate_single_controller(N.pq_tournament_ops(), ls, 32, 2,
+                                           {"n": 20})
+        win = N.delegate_window(N.pq_tournament_ops(), ls, 32, 2,
+                                {"n": ns.to(d)})
+        assert (KO.LAUNCHES["topk_smallest"] > before) == (d.type == "cuda")
+        outs.append((one, win))
+    for a, b in zip(outs[0], outs[1]):
+        for x, y in zip(a, b):
+            for k in x:
+                assert torch.equal(x[k].cpu(), y[k]), k
+
+
+def _same_trees(a, b, where=""):
+    """Integer leaves equal; float leaves to the collectives' tolerance."""
+    if isinstance(a, dict):
+        assert a.keys() == b.keys(), where
+        for k in a:
+            _same_trees(a[k], b[k], f"{where}/{k}")
+    elif isinstance(a, (list, tuple)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_trees(x, y, f"{where}/{i}")
+    elif isinstance(a, np.ndarray) and a.dtype.kind == "f":
+        np.testing.assert_allclose(a, b, 1e-5, 1e-5, err_msg=where)
+    else:
+        assert np.array_equal(a, b), where
+
+
+@pytest.mark.gpu
+def test_nccl_mesh_across_four_cards_equals_the_cpu_mesh():
+    """NCCL across four cards (a (2, 2) mesh, one card a rank) against the
+    same ranks over gloo on the CPU, whose results tests/test_torch_dist.py
+    and tests/test_torch_collectives.py hold to the JAX package: every
+    schedule's state and outputs, `delegate_dist`, the collectives and
+    their counts."""
+    from repro_torch.distributed import spawn
+    from torch_dist_ranks import collectives, dist_pq, port_cases
+
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    x = np.random.default_rng(0).normal(size=(4, 64)).astype(np.float32)
+    cases = port_cases(4)
+    for fn, axes, args in ((dist_pq, ("pod", "shard"), (cases,)),
+                           (collectives, ("pod", "data"), (x, 8))):
+        runs = [spawn(fn, (2, 2), axes, device=d, args=args, timeout=300)
+                for d in ("cuda", "cpu")]
+        _same_trees(runs[0], runs[1], fn.__name__)

@@ -139,6 +139,43 @@ def test_worker_and_supervisor_run_on_the_card_by_default(tmp_path):
     assert err.value.exit_codes == [1]
 
 
+def test_mesh_and_spawn_run_on_the_card_by_default():
+    """`make_mesh` and `spawn` take the card and NCCL unless the caller names
+    another device or backend, and raise without a card rather than run on
+    the CPU; gloo on CUDA tensors (payloads staged through host memory) is
+    reached only by naming it: the port's one choice of gloo is
+    `default_backend`'s for the CPU."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import make_mesh, mesh, spawn
+
+    assert mesh.default_backend(torch.device("cuda")) == "nccl"
+    assert mesh.default_backend(torch.device("cpu")) == "gloo"
+    if torch.cuda.is_available():
+        with make_mesh((1, 1), ("pod", "shard")) as m:
+            assert (m.device.type, m.backend, m.staged) == ("cuda", "nccl",
+                                                            False)
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make_mesh((1, 1), ("pod", "shard"))
+        assert not dist.is_initialized()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            spawn(test_mesh_and_spawn_run_on_the_card_by_default, (2,),
+                  ("dev",))
+    with make_mesh((1, 1), ("pod", "shard"), device="cpu") as m:
+        assert (m.backend, m.staged, m.transport) == ("gloo", False,
+                                                      "gloo on cpu")
+    assert not dist.is_initialized()
+    named = [f"{f.relative_to(PORT)}: {line.strip()}"
+             for f in sorted(PORT.rglob("*.py"))
+             for line in f.read_text().splitlines() if '"gloo"' in line]
+    assert named == [
+        'distributed/mesh.py: self.staged = backend == "gloo" and '
+        'device.type == "cuda"',
+        'distributed/mesh.py: return "nccl" if device.type == "cuda" else '
+        '"gloo"'], named
+
+
 def test_port_injectors_are_the_references_and_all_tested():
     """The port's `INJECTORS` has the reference's names, and each is named
     in tests/test_torch_faults.py (the port's tests/test_hygiene.py::
