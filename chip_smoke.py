@@ -108,7 +108,27 @@ non-zero before its last line):
               .py), then which collectives gloo takes on CUDA tensors as
               they are; I3 Nuddle's `delegate_single_controller` and a K = 8
               `delegate_window` on I1's final state, card against CPU;
-  13. the total time; then the kernels JSON line, the card line, and the
+  13. path J  the dense model path at full width (`models/`, `ServeEngine`
+              with a model): llama3.2-3b (28 layers, d 3072, 24 heads, 8 KV
+              heads, d_ff 8192, vocab 128256) in bf16 from a seeded
+              generator on the card: J1 the build (parameters, bytes, init
+              time, peak memory); J2 4 prompts of 32 tokens, `prefill`
+              against 32 teacher-forced `decode_step`s from empty caches
+              (logits and caches) and `train_logits` at the last position,
+              within `J2_ULPS`; J3 launch/serve.py's workload (24 requests
+              in bursts of 6) on `EngineConfig(batch_size=8, max_seq=512)`
+              at K = 1 and 4: every request completed, `health()`'s
+              identities after every window, ms a tick, µs a token,
+              tokens/s, syncs a tick, a decode step host-issued and on the
+              device (a replayed CUDA graph) against its bound, its device
+              µs by layer (embedding, attention decode, MLP, unembedding)
+              from a profiled step, the busy share of ticks 4-20 and the
+              scheduler kernels' launches; J4 reduced llama3.2-3b and
+              gemma-2b from one numpy tree on the card and on the CPU, f32
+              (TF32 off) then bf16, within the CPU tests' tolerances, and
+              their engine runs (EOS off) with the same admissions and
+              completion steps (and tokens, in f32);
+  14. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -120,7 +140,9 @@ count alike; on paths G and H an engine tick does (path H counts its
 engine runs and recoveries in this process, not its worker processes); on
 path I a distributed step or a delegation round does, and its launches are
 those of this process's distributed calls and delegations plus those of
-I2's eight rank processes, each counted from 0 just before its steps.
+I2's eight rank processes, each counted from 0 just before its steps; on
+path J an engine tick does, and its launches are those of J3's engine
+runs (the model itself launches no hand kernel).
 `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/, path H's stores to build/chip_smoke/durable/.  The
@@ -529,6 +551,7 @@ PATH_KERNELS = {
           "multiq_select"),
     "I": ("windowed_merge", "topk_smallest", "twochoice_pick",
           "multiq_select"),
+    "J": ("windowed_merge", "topk_smallest", "elim_sort"),
 }
 PREFILL_BATCH = 4096
 # Kernel launches inside `run_window` calls only (prefills excluded), per
@@ -2747,6 +2770,436 @@ def path_i(cfg=PATH_I, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the dense model path
+# ---------------------------------------------------------------------------
+
+# Path J: the dense model path at full width: llama3.2-3b
+# (src/repro_torch/configs/llama3_2_3b.py: 28 layers, d 3072, 24 heads, 8
+# KV heads, d_ff 8192, vocab 128256), bf16, random weights from a seeded
+# torch.Generator on the card.  J2: 4 prompts of 32 tokens, prefill against
+# 32 teacher-forced decode steps from empty caches.  J3: launch/serve.py's
+# workload (24 requests in bursts of 6, each followed by 4 empty ticks) on
+# `EngineConfig(batch_size=8, max_seq=512)` at K = 1 and 4, each run again
+# with ticks 4-20 profiled.  J4: reduced llama3.2-3b and gemma-2b on the
+# card and on the CPU from one numpy tree, f32 (TF32 off) then bf16.
+PATH_J = dict(arch="llama3.2-3b", reduced=False, seed=0, prompts=4,
+              prompt_len=32, requests=24, burst=6, batch_size=8,
+              max_seq=512, windows=(1, 4), profile=(4, 20), reps=10,
+              small=("llama3.2-3b", "gemma-2b"), small_len=16,
+              small_steps=8, small_slots=4, small_max_seq=64)
+# J2's tolerance, decode against recompute on the card in bf16 at full
+# width, in bf16 ulps of the largest prefill value (an ulp: 2^(floor(log2
+# max) - 7)): one-row and S-row matmuls round apart at every layer; 6.00
+# (logits) to 6.75 (V cache) measured on an H100 (PERF.md §5).
+J2_ULPS = 16
+# J4's tolerances, the CPU tests' (tests/test_torch_models.py): f32 logits
+# within 5e-5 and caches within 1e-5 (absolute); bf16 within 2 ulps.
+J4_F32 = dict(logits=5e-5, cache=1e-5)
+J4_BF16_ULPS = 2
+
+
+def _bf16_ulps(got, want) -> float:
+    """max |got - want| in bf16 ulps of the largest |want|."""
+    import math
+
+    want, got = want.float().cpu(), got.float().cpu()
+    ulp = 2.0 ** (math.floor(math.log2(float(want.abs().max()))) - 7)
+    return float((got - want).abs().max()) / ulp
+
+
+def _max_abs(got, want) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max())
+
+
+def path_j1(c=PATH_J, device="cuda"):
+    """J1: build the model at full width on the card from a seeded
+    generator, one leaf (a stacked leaf one layer) at a time.  Returns
+    (config, model, parameters, weight bytes)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models.params import leaves
+    from repro_torch.models.registry import build_model
+
+    dev = torch.device(device)
+    cfg = (reduced_config if c["reduced"] else get_config)(c["arch"])
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(c["seed"]))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    flat = dict(leaves(params))
+    n = sum(w.numel() for w in flat.values())
+    nbytes = sum(w.numel() * w.element_size() for w in flat.values())
+    norms = sum(w.numel() for p, w in flat.items() if "norm" in p)
+    if n - norms != cfg.param_count():
+        raise AssertionError(f"path J1: {n - norms} parameters besides the "
+                             f"norms, the config counts {cfg.param_count()}")
+    if any(w.dtype != torch.bfloat16 for w in flat.values()):
+        raise AssertionError("path J1: a leaf is not bf16")
+    std = float(flat["embed"][:4096].float().std())
+    if abs(std * cfg.d_model ** 0.5 - 1) > 0.05:
+        raise AssertionError(f"path J1: embed std {std}")
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+    log(f"[13 path J1] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV), d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab}: {n:,} parameters ({cfg.param_count():,} counted by "
+        f"the config, {norms:,} norm scales), {nbytes:,} bytes in bf16, "
+        f"init {init_s:.3f}s on the {dev.type}, peak allocated "
+        + (f"{peak:,} bytes" if peak is not None else "not measured"))
+    return cfg, model, params, nbytes
+
+
+def path_j2(cfg, model, params, c=PATH_J, device="cuda"):
+    """J2: decode equals recompute at full width: `prefill` of P prompts
+    of L tokens against L teacher-forced `decode_step`s from empty caches
+    (the last step's logits and both caches), and `train_logits` at the
+    last position against `prefill`, within `J2_ULPS`."""
+    import torch
+
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import padded_vocab
+
+    dev = torch.device(device)
+    P, L = c["prompts"], c["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(c["seed"] + 1)
+    tok = torch.randint(0, cfg.vocab, (P, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    t0 = time.perf_counter()
+    want, pre = model.prefill(params, {"tokens": tok})
+    _sync(dev)
+    pre_s = time.perf_counter() - t0
+    train, _ = model.train_logits(params, {"tokens": tok})
+    caches = init_caches(cfg, P, L, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(L):
+        got, caches = model.decode_step(
+            params, caches, tok[:, t:t + 1],
+            torch.full((P,), t, dtype=torch.int32, device=dev))
+    _sync(dev)
+    dec_s = time.perf_counter() - t0
+    errs = {"decode logits": _bf16_ulps(got, want),
+            "train_logits[:, -1]": _bf16_ulps(train[:, -1], want),
+            "k cache": _bf16_ulps(caches["k"], pre["k"]),
+            "v cache": _bf16_ulps(caches["v"], pre["v"])}
+    if tuple(got.shape) != (P, padded_vocab(cfg)) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"path J2: logits {tuple(got.shape)} not "
+                             f"finite or not (P, V_pad)")
+    bad = {k: v for k, v in errs.items() if v > J2_ULPS}
+    if bad:
+        raise AssertionError(f"path J2: {bad} bf16 ulps above {J2_ULPS}")
+    log(f"[13 path J2] {P} prompts of {L} tokens: prefill "
+        f"{pre_s * 1e3:.1f} ms, {L} teacher-forced decode steps "
+        f"{dec_s * 1e3 / L:.2f} ms a step (host-issued); bf16 ulps of the "
+        f"largest prefill value (at most {J2_ULPS}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in errs.items())
+        + f"; largest |logit| {float(want.float().abs().max()):.4f}")
+
+
+J_LABELS = {"_embed": "J embedding", "_attn_decode": "J attention decode",
+            "_ffn": "J MLP", "_unembed": "J unembedding"}
+
+
+@contextlib.contextmanager
+def labelled(model):
+    """The model's sublayers run inside `record_function` ranges named in
+    `J_LABELS`, so a profiler trace attributes each device call to one."""
+    from torch.profiler import record_function
+
+    for attr, label in J_LABELS.items():
+        def wrapped(*a, _fn=getattr(model, attr), _label=label, **kw):
+            with record_function(_label):
+                return _fn(*a, **kw)
+        setattr(model, attr, wrapped)
+    try:
+        yield
+    finally:
+        for attr in J_LABELS:
+            delattr(model, attr)
+
+
+def device_us_by_label(path):
+    """Device µs and calls in the Chrome trace at `path`, by the innermost
+    `record_function` range whose host thread launched each call (matched
+    through the launch's correlation id); calls launched outside every
+    range go under "other"."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                   if e.get("cat") == "user_annotation"
+                   and not e["name"].startswith("ProfilerStep"))
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    out = {}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        label = "other"
+        for a, b, name in spans:
+            if ts is not None and a <= ts <= b:
+                label = name
+        calls, us = out.get(label, (0, 0.0))
+        out[label] = (calls + 1, us + float(e["dur"]))
+    return out
+
+
+def decode_step_times(model, params, eng, nbytes, c=PATH_J):
+    """One decode step on the engine's state after its run: ms a step as
+    the host issues it (CUDA events around `reps` steps), the device's ms
+    (CUDA events around a replayed CUDA graph of the step), the bound
+    (the weights and the valid prefix of the K/V cache, each read once,
+    over the memory rate), and one profiled step's device µs by layer."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
+
+    cfg = model.cfg
+    step = lambda: model.decode_step(params, eng.caches, eng.tokens,  # noqa: E731
+                                     eng.lengths)
+    host_ms = cuda_ms(step, iters=c["reps"])
+    dev_ms = graph_ms(step, iters=2, replays=c["reps"])
+    filled = int(eng.lengths.sum()) + eng.lengths.numel()
+    cache_bytes = (2 * cfg.n_layers * filled * cfg.n_kv_heads
+                   * cfg.resolved_head_dim * 2)
+    bound_ms = (nbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    # The first device calls of a profiler session can go unrecorded (the
+    # embedding's, in a process that profiled before): a traced warm-up
+    # step, discarded, goes first, and the active step's trace is written
+    # when it ends.
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"J_decode_K{eng.ecfg.sched_window}.json"
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                   schedule=schedule(wait=0, warmup=1, active=1),
+                   on_trace_ready=lambda p: p.export_chrome_trace(str(path)))
+    with labelled(model), prof:
+        for _ in range(2):
+            step()
+            torch.cuda.synchronize()
+            prof.step()
+    by = device_us_by_label(path)
+    return host_ms, dev_ms, bound_ms, nbytes / HBM_BYTES_PER_S * 1e3, by
+
+
+def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda"):
+    """J3: the engine at full width on launch/serve.py's workload, at K = 1
+    and 4: every request completed with a token at least, `health()`'s
+    identities after every window, a mode trace; ms a tick, µs a token,
+    tokens/s, host syncs a tick, the decode step's times against its
+    bound, the busy share of 16 profiled ticks (the same run again with
+    those ticks under the profiler, against the unprofiled run's), the
+    scheduler kernels' launches.  Returns the engine ticks run (the
+    profiled runs' too: they count as the path's)."""
+    import torch
+
+    from repro_torch.launch.serve import workload
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    dev = torch.device(device)
+    ticks = 0
+    for K in c["windows"]:
+        def engine():
+            return ServeEngine(cfg, params, EngineConfig(
+                batch_size=c["batch_size"], max_seq=c["max_seq"],
+                sched_window=K), device=dev, tree=tree)
+
+        eng = engine()
+        before = dict(WINDOW_LAUNCHES)
+        summary, meas = serve_run(eng, workload(c["requests"], c["burst"]),
+                                  10_000, check=True)
+        launches = {k: n - before.get(k, 0)
+                    for k, n in WINDOW_LAUNCHES.items()
+                    if n - before.get(k, 0)}
+        steps = summary["steps"]
+        ticks += steps
+        if summary["completed"] != c["requests"] or len(eng.outputs) != \
+                c["requests"] or min(map(len, eng.outputs.values())) < 1:
+            raise AssertionError(f"path J3 K={K}: {summary['completed']} of "
+                                 f"{c['requests']} completed")
+        if not summary["mode_trace"]:
+            raise AssertionError(f"path J3 K={K}: empty mode trace")
+        tokens = sum(map(len, eng.outputs.values()))
+        wall = meas["wall_s"]
+        line = (f"[13 path J3] K={K}: {summary['completed']}/"
+                f"{c['requests']} requests in {steps} ticks, {tokens} "
+                f"tokens, {c['batch_size']} slots, max_seq {c['max_seq']}: "
+                f"{wall * 1e3 / steps:.3f} ms/tick, {wall * 1e6 / tokens:.1f} "
+                f"us/token, {tokens / wall:.1f} tokens/s, host syncs "
+                f"{meas['syncs'] / steps:.2f}/tick, "
+                f"{_modes_line(summary['mode_trace'])}; identities held "
+                f"after {meas['checks']} windows | launches {launches} "
+                f"({ {k: round(n / steps, 3) for k, n in launches.items()} } "
+                f"a tick)")
+        if dev.type == "cuda":
+            host_ms, dev_ms, bound_ms, w_ms, by = decode_step_times(
+                model, params, eng, nbytes, c)
+            lo, hi = c["profile"]
+            psummary, pmeas = serve_run(engine(), workload(
+                c["requests"], c["burst"]), 10_000, profile=(lo, hi))
+            ticks += psummary["steps"]
+            unprofiled = sum(s for step0, (n, s) in meas["window_s"].items()
+                             if lo <= step0 < hi)
+            share = busy_share(pmeas["prof"], f"J_K{K}", unprofiled)
+            layers = "; ".join(f"{k} {us:.1f} us in {n} calls"
+                               for k, (n, us) in sorted(by.items()))
+            line += (f" | decode step: {host_ms:.3f} ms host-issued (CUDA "
+                     f"events), {dev_ms:.3f} ms on the device (a replayed "
+                     f"CUDA graph), bound {bound_ms:.3f} ms (weights "
+                     f"{w_ms:.3f} ms + the valid K/V prefix, at 3.35 TB/s); "
+                     f"device by layer: {layers} | ticks {lo}-{hi}: "
+                     + share_line(*share, per=f"{hi - lo} ticks",
+                                  of="the same ticks unprofiled"))
+        log(line)
+        del eng
+    return ticks
+
+
+@contextlib.contextmanager
+def f32_models():
+    """Engines built inside build their model and caches in f32 (the
+    engine has no dtype knob; tests/test_torch_serve.py patches the same
+    two functions)."""
+    import functools
+
+    import torch
+
+    import repro_torch.models.io as MIO
+    import repro_torch.models.registry as MR
+
+    saved = MR.build_model, MIO.init_caches
+    MR.build_model = functools.partial(saved[0], compute_dtype=torch.float32)
+    MIO.init_caches = functools.partial(saved[1], dtype=torch.float32)
+    try:
+        yield
+    finally:
+        MR.build_model, MIO.init_caches = saved
+
+
+def path_j4(tree, c=PATH_J, device="cuda"):
+    """J4: reduced llama3.2-3b and gemma-2b with one numpy tree on the
+    card and on the CPU (`params_from_numpy`), f32 with TF32 off, then
+    bf16: `train_logits`, `prefill` (logits, caches) and teacher-forced
+    decode steps within the CPU tests' tolerances; the launcher's workload
+    through `ServeEngine` with EOS off and the same draws: the same
+    admissions, completion steps, health and mode trace on both, and in
+    f32 the same tokens."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch.serve import workload
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import init_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("path J4: TF32 matmuls are on")
+    cpu = torch.device("cpu")
+    devs = (torch.device(device), cpu)
+    L, T = c["small_len"], c["small_steps"]
+    for arch in c["small"]:
+        cfg = reduced_config(arch)
+        tree_np = params_to_numpy(init_params(
+            cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+            device=cpu))
+        tok_np = np.random.default_rng(4).integers(
+            0, cfg.vocab, (2, L)).astype(np.int32)
+        for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            outs = []
+            for d in devs:
+                model = build_model(cfg, compute_dtype=dt, device=d)
+                p = params_from_numpy(tree_np, cfg, device=d, dtype=dt)
+                tok = torch.as_tensor(tok_np, device=d)
+                train, _ = model.train_logits(p, {"tokens": tok})
+                pre, pc = model.prefill(p, {"tokens": tok})
+                caches = init_caches(cfg, 2, L, dtype=dt, device=d)
+                logits = [train, pre]
+                for t in range(T):
+                    lg, caches = model.decode_step(
+                        p, caches, tok[:, t:t + 1],
+                        torch.full((2,), t, dtype=torch.int32, device=d))
+                    logits.append(lg)
+                outs.append(([x.cpu() for x in logits],
+                             [x.cpu() for x in (pc["k"], pc["v"],
+                                                caches["k"], caches["v"])]))
+            (lg_dev, kv_dev), (lg_cpu, kv_cpu) = outs
+            if name == "f32":
+                err = (max(map(_max_abs, lg_dev, lg_cpu)),
+                       max(map(_max_abs, kv_dev, kv_cpu)))
+                ok = err[0] <= J4_F32["logits"] and err[1] <= J4_F32["cache"]
+                what = (f"max |diff| logits {err[0]:.3g} (<= "
+                        f"{J4_F32['logits']}), caches {err[1]:.3g} (<= "
+                        f"{J4_F32['cache']})")
+            else:
+                err = (max(map(_bf16_ulps, lg_dev, lg_cpu)),
+                       max(map(_bf16_ulps, kv_dev, kv_cpu)))
+                ok = max(err) <= J4_BF16_ULPS
+                what = (f"bf16 ulps logits {err[0]:.2f}, caches "
+                        f"{err[1]:.2f} (<= {J4_BF16_ULPS})")
+            if not ok:
+                raise AssertionError(f"path J4 {arch} {name}: {what}")
+            draws = serve_draws(400, 23)
+            runs = []
+            with (f32_models() if name == "f32"
+                  else contextlib.nullcontext()):
+                for d in devs:
+                    eng = ServeEngine(cfg, params_from_numpy(
+                        tree_np, cfg, device=d, dtype=dt), EngineConfig(
+                        batch_size=c["small_slots"],
+                        max_seq=c["small_max_seq"], eos_token=-1),
+                        device=d, tree=tree, draws=draws)
+                    eng.run(workload(c["requests"], c["burst"]),
+                            max_steps=10_000)
+                    if eng.caches["k"].dtype != dt:
+                        raise AssertionError("path J4: caches not in "
+                                             f"{dt}")
+                    runs.append(eng)
+            g, h = runs
+            same = (g.admit_step == h.admit_step
+                    and g.done_step == h.done_step
+                    and g.health() == h.health()
+                    and g.scheduler.stats.mode_trace
+                    == h.scheduler.stats.mode_trace
+                    and len(g.done_step) == c["requests"])
+            if not same or (name == "f32" and g.outputs != h.outputs):
+                raise AssertionError(f"path J4 {arch} {name}: the engine "
+                                     f"runs differ between card and CPU")
+            log(f"[13 path J4] {cfg.name} {name}: train_logits, prefill and "
+                f"{T} decode steps card against CPU: {what}; engine, "
+                f"{c['requests']} requests, EOS off: admissions, completion "
+                f"steps, health and mode trace equal"
+                + (", tokens equal" if name == "f32" else ""))
+
+
+def path_j(tree, c=PATH_J, device="cuda"):
+    """Phase 13: J1-J4.  The path's launch counts are those of J3's
+    unprofiled engine runs alone (an engine tick is a window of one step):
+    the model has no kernel of its own, and the scheduler's kernels run in
+    the engine's ticks.  Returns (launches, launches inside the runs,
+    ticks)."""
+    from repro_torch.kernels import ops as KO
+
+    cfg, model, params, nbytes = path_j1(c, device)
+    path_j2(cfg, model, params, c, device)
+    counts_reset()
+    ticks = path_j3(tree, cfg, model, params, nbytes, c, device)
+    _, in_runs = counts_read("J")
+    del model, params
+    path_j4(tree, c, device)
+    return {k: in_runs.get(k, 0) for k in KO.LAUNCHES}, in_runs, ticks
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -2841,12 +3294,17 @@ def main() -> int:
     log(f"[12 path I] {time.perf_counter() - t0:.1f}s | launches "
         f"{path_i_counts[0]} (inside its distributed calls and delegations "
         f"{path_i_counts[1]})")
-    log(f"[13 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_j_counts = path_j(tree)
+    log(f"[13 path J] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_j_counts[0]} (inside its engine runs {path_j_counts[1]}, "
+        f"{path_j_counts[2]} ticks)")
+    log(f"[14 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
-        "G": path_g_counts, "H": path_h_counts, "I": path_i_counts}, phase2,
-        floor)))
+        "G": path_g_counts, "H": path_h_counts, "I": path_i_counts,
+        "J": path_j_counts}, phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

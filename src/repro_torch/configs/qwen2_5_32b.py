@@ -1,0 +1,25 @@
+"""qwen2.5-32b [dense] — GQA with QKV bias.
+
+64L d_model=5120 40H (GQA kv=8) d_ff=27648 vocab=152064
+[hf:Qwen/Qwen2.5-0.5B; hf]
+
+Copy of src/repro/configs/qwen2_5_32b.py.
+"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen2.5-32b",
+    family="dense",
+    n_layers=64,
+    d_model=5120,
+    n_heads=40,
+    n_kv_heads=8,
+    d_ff=27648,
+    vocab=152064,
+    head_dim=128,
+    act="silu",
+    norm="rms",
+    qkv_bias=True,
+    rope_theta=1000000.0,
+)

@@ -1,0 +1,29 @@
+"""Model construction from configs (counterpart of
+src/repro/models/registry.py).
+
+The reference's `mesh`, `rules`, `remat`, `model_axis_size` and
+`cast_before_scan` shape its XLA program and sharding; the port has no
+counterpart for them and takes none.  `device` is the port's own: the card
+unless the caller names another.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import Model
+
+MODEL_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
+
+
+def build_model(cfg: ModelConfig, compute_dtype=None, kv_chunk: int = 2048,
+                kv_int8: bool = False, device=None) -> Model:
+    """The dense family's `Model`; the other families, and the int8 KV
+    cache, raise `NotImplementedError` naming their ROADMAP item."""
+    if kv_int8:
+        raise NotImplementedError(
+            "kv_int8=True: the int8 KV cache is not ported yet (ROADMAP "
+            "queue 1 item 8.4)")
+    return Model(cfg, compute_dtype=compute_dtype or torch.bfloat16,
+                 kv_chunk=kv_chunk, device=device)

@@ -1,11 +1,17 @@
 """Serving engine: continuous batching over SmartPQ, in PyTorch.
 
-Counterpart of src/repro/serve/engine.py with ``cfg=None``: the model-free
-synthetic decode (the next token is a pure function of the current one and
-never the EOS id, so completion timing is driven by `max_new_tokens`) — the
-engine loop the SLO and overload benchmarks drive, without a model.  A
-model config (`cfg`) waits for the port of the model path (ROADMAP queue 1
-item 8) and raises `NotImplementedError` until then.
+Counterpart of src/repro/serve/engine.py.  With a model config (`cfg`)
+the engine builds the model (`models.registry.build_model`, bf16 by
+default), zero bf16 KV caches of `batch_size` x `max_seq`
+(`models.io.init_caches`) and decodes every slot through
+`Model.decode_step`, which writes the caches in place; a request ends when
+its length reaches ``max_seq - 1`` (`full`), so no cache write falls past
+the end.  Only the dense family is ported: the others raise
+`NotImplementedError` naming their ROADMAP item.  With ``cfg=None`` the
+engine runs the model-free synthetic decode (the next token is a pure
+function of the current one and never the EOS id, so completion timing is
+driven by `max_new_tokens`): the engine loop the SLO and overload
+benchmarks drive, without a model.
 
 With `EngineConfig.durable_dir` set the engine is durable
 (`serve/durability.py`): each window's arrivals are written to the
@@ -48,8 +54,8 @@ class EngineConfig:
     batch_size: int = 8  # concurrent decode slots
     max_seq: int = 512
     eos_token: int = 2
-    # Read only by the model path (cfg not None, ROADMAP queue 1 item 8),
-    # which raises until then; the synthetic decode has no KV cache.
+    # KV chunk of the model's attention (cfg not None); the synthetic
+    # decode has no KV cache.
     kv_chunk: int = 2048
     # Scheduler dispatch granularity: >1 batches K ticks into one
     # scheduler.tick_window call instead of K tick() calls.
@@ -85,24 +91,33 @@ class EngineConfig:
 
 
 class ServeEngine:
-    """The synthetic-decode serving loop.  Runs on the card unless `device`
-    names another; `tree` and `draws` go to the scheduler (its queue's
-    decision tree, and its per-tick random draws when the caller supplies
-    them instead of the seeded generator)."""
+    """The serving loop, with a model (`cfg`, `params` on the engine's
+    device) or the synthetic decode (``cfg=None``).  Runs on the card unless
+    `device` names another; `tree` and `draws` go to the scheduler (its
+    queue's decision tree, and its per-tick random draws when the caller
+    supplies them instead of the seeded generator)."""
 
     def __init__(self, cfg, params, engine_cfg: EngineConfig, mesh=None,
                  seed: int = 0, device=None, tree=None, draws=None):
-        if cfg is not None:
-            raise NotImplementedError(
-                "ServeEngine with a model config: the model path is not "
-                "ported yet (ROADMAP queue 1 item 8); cfg=None runs the "
-                "synthetic decode")
         del mesh
         self.device = resolve_device(device)
         self.ecfg = engine_cfg
         self.params = params
-        B = engine_cfg.batch_size
-        self.caches = ()
+        B, S = engine_cfg.batch_size, engine_cfg.max_seq
+        if cfg is not None:
+            # imported at call time, as the reference's engine does, so a
+            # caller can swap them (the f32 engine comparisons do)
+            from repro_torch.models.io import init_caches
+            from repro_torch.models.registry import build_model
+
+            self.model = build_model(cfg, kv_chunk=engine_cfg.kv_chunk,
+                                     device=self.device)
+            self.caches = init_caches(cfg, B, S, device=self.device)
+            self._decode = self.model.decode_step
+        else:  # model-free synthetic decode: scheduler and engine loop only
+            self.model = None
+            self.caches = ()
+            self._decode = _synthetic_decode
         # One observability bundle for every layer below.
         self.obs = Observability(metrics=True, tracing=engine_cfg.tracing)
         overload = None
@@ -247,7 +262,7 @@ class ServeEngine:
             dispatched = self.scheduler.tick(arrivals, n_dispatch=n_free)
         self._admit(dispatched)
 
-        logits, self.caches = _synthetic_decode(
+        logits, self.caches = self._decode(
             self.params, self.caches, self.tokens, self.lengths
         )
         next_tok = torch.argmax(logits, dim=-1).to(torch.int32)

@@ -1,5 +1,6 @@
-"""The port on the card: each CUDA kernel against its plain version, and the
-fused window on the card against the same window on the CPU.
+"""The port on the card: each CUDA kernel against its plain version, the
+fused window on the card against the same window on the CPU, and the dense
+model path (a reduced model card against CPU, one full-width decode).
 
 Every test here is marked `gpu` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -930,3 +931,134 @@ def test_nccl_mesh_across_four_cards_equals_the_cpu_mesh():
         runs = [spawn(fn, (2, 2), axes, device=d, args=args, timeout=300)
                 for d in ("cuda", "cpu")]
         _same_trees(runs[0], runs[1], fn.__name__)
+
+
+# ---------------------------------------------------------------------------
+# the dense model path
+# ---------------------------------------------------------------------------
+
+# The CPU tests' tolerances (tests/test_torch_models.py): f32 logits within
+# 5e-5 and caches within 1e-5; bf16 within 2 ulps of the largest value.
+MODEL_F32 = dict(logits=5e-5, cache=1e-5)
+# Decode against recompute at full width in bf16 on the card, in ulps of the
+# largest prefill value: chip_smoke.py's J2_ULPS (one-row and S-row matmuls
+# round apart at every layer).
+FULL_WIDTH_ULPS = 16
+
+
+def _bf16_ulps(got, want):
+    want, got = want.float().cpu(), got.float().cpu()
+    ulp = 2.0 ** (np.floor(np.log2(float(want.abs().max()))) - 7)
+    return float((got - want).abs().max()) / ulp
+
+
+def _model_run(cfg, tree_np, tok_np, dtype, device, steps):
+    """train_logits, prefill and teacher-forced decode steps from empty
+    caches, on `device`; logits and caches on the CPU."""
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg, compute_dtype=dtype, device=device)
+    p = params_from_numpy(tree_np, cfg, device=device, dtype=dtype)
+    tok = torch.as_tensor(tok_np, device=device)
+    train, _ = model.train_logits(p, {"tokens": tok})
+    pre, pc = model.prefill(p, {"tokens": tok})
+    B, S = tok.shape
+    caches = init_caches(cfg, B, S, dtype=dtype, device=device)
+    logits = [train, pre]
+    for t in range(steps):
+        lg, caches = model.decode_step(
+            p, caches, tok[:, t:t + 1],
+            torch.full((B,), t, dtype=torch.int32, device=device))
+        logits.append(lg)
+    return ([x.cpu() for x in logits],
+            [x.cpu() for x in (pc["k"], pc["v"], caches["k"], caches["v"])])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "gemma-2b"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_reduced_model_on_the_card_equals_the_cpu(arch, dtype, monkeypatch):
+    """`chip_smoke.py` J4 in small form: one numpy tree on the card and on
+    the CPU, f32 with TF32 off then bf16, `train_logits`, `prefill` and 8
+    decode steps within the CPU tests' tolerances; and the engine (EOS off,
+    the same draws) with the same admissions, completion steps and health,
+    and in f32 the same tokens."""
+    import functools
+
+    import repro_torch.models.io as MIO
+    import repro_torch.models.registry as MR
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.params import init_params
+
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced_config(arch)
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    tree_np = params_to_numpy(init_params(
+        cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+        device="cpu"))
+    tok = np.random.default_rng(4).integers(0, cfg.vocab, (2, 16)).astype(
+        np.int32)
+    (lg, kv), (lc, kc) = (_model_run(cfg, tree_np, tok, td, d, 8)
+                          for d in (dev, "cpu"))
+    for what, got, want in (("logits", lg, lc), ("cache", kv, kc)):
+        for g, c in zip(got, want):
+            if dtype == "f32":
+                assert float((g - c).abs().max()) <= MODEL_F32[what]
+            else:
+                assert _bf16_ulps(g, c) <= 2
+    if dtype == "f32":
+        monkeypatch.setattr(MR, "build_model", functools.partial(
+            MR.build_model, compute_dtype=torch.float32))
+        monkeypatch.setattr(MIO, "init_caches", functools.partial(
+            MIO.init_caches, dtype=torch.float32))
+    draws = _serve_draws(200)
+    engines = []
+    for d in (dev, "cpu"):
+        eng = ServeEngine(cfg, params_from_numpy(tree_np, cfg, device=d,
+                                                 dtype=td),
+                          EngineConfig(batch_size=4, max_seq=32,
+                                       eos_token=-1),
+                          device=d, draws=draws,
+                          tree=engines[0].scheduler.pq.tree if engines
+                          else None)
+        eng.run(traces.bursty_serve_workload(steps=16, seed=1),
+                max_steps=100_000)
+        assert eng.caches["k"].dtype == td
+        engines.append(eng)
+    g, c = engines
+    assert g.admit_step == c.admit_step and g.done_step == c.done_step
+    assert g.health() == c.health() and len(g.done_step) > 0
+    if dtype == "f32":
+        assert g.outputs == c.outputs
+
+
+@pytest.mark.gpu
+def test_full_width_decode_on_the_card_equals_recompute():
+    """`chip_smoke.py` J2 in small form: llama3.2-3b at full width in bf16
+    on the card, one prompt of 8 tokens: `prefill` against 8 teacher-forced
+    `decode_step`s (the last logits and both caches), within
+    `FULL_WIDTH_ULPS`."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.registry import build_model
+
+    dev = _card()
+    cfg = get_config("llama3.2-3b")
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (1, 8), device=dev, dtype=torch.int32,
+                        generator=torch.Generator(device=dev).manual_seed(1))
+    want, pre = model.prefill(params, {"tokens": tok})
+    caches = init_caches(cfg, 1, 8, device=dev)
+    for t in range(8):
+        got, caches = model.decode_step(
+            params, caches, tok[:, t:t + 1],
+            torch.full((1,), t, dtype=torch.int32, device=dev))
+    assert got.shape == (1, 128256) and bool(torch.isfinite(got).all())
+    for g, w in ((got, want), (caches["k"], pre["k"]),
+                 (caches["v"], pre["v"])):
+        assert _bf16_ulps(g, w) <= FULL_WIDTH_ULPS

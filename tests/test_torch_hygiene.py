@@ -112,6 +112,50 @@ def test_serving_runs_on_the_card_by_default():
     assert eng.scheduler.carry.state.device.type == "cpu"
 
 
+def test_model_path_runs_on_the_card_by_default():
+    """`build_model`, `init_params`, `init_caches`, `params_from_numpy` and
+    `ServeEngine` with a model go to the card unless the caller names
+    another device, and raise without one; `python -m
+    repro_torch.launch.serve` with no --device refuses to run without a
+    card rather than fall back to the CPU."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import init_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+
+    cfg = reduced_config("llama3.2-3b")
+    small = EngineConfig(batch_size=2, max_seq=8)
+    tree = params_to_numpy(init_params(cfg, device="cpu"))
+    argv = ["-m", "repro_torch.launch.serve", "--arch", "llama3.2-3b",
+            "--reduced", "--requests", "6"]
+    if torch.cuda.is_available():
+        assert build_model(cfg).device.type == "cuda"
+        assert init_caches(cfg, 2, 8)["k"].device.type == "cuda"
+        params = params_from_numpy(tree, cfg)
+        assert params["embed"].device.type == "cuda"
+        eng = ServeEngine(cfg, params, small)
+        assert eng.caches["k"].device.type == "cuda"
+        out = _python(argv, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert "6/6 requests" in out.stdout
+        return
+    for make in (lambda: build_model(cfg), lambda: init_params(cfg),
+                 lambda: init_caches(cfg, 2, 8),
+                 lambda: params_from_numpy(tree, cfg),
+                 lambda: ServeEngine(cfg, None, small)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    out = _python(argv)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "requests" not in out.stdout
+    out = _python(argv + ["--device", "cpu"])
+    assert out.returncode == 0, out.stderr
+    assert "6/6 requests" in out.stdout
+
+
 def test_worker_and_supervisor_run_on_the_card_by_default(tmp_path):
     """`python -m repro_torch.serve.worker` with no --device runs on the
     card: without one it refuses, and the supervisor's circuit breaker

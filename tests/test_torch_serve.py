@@ -2,22 +2,35 @@
 package's, on the CPU: `Request.priority_key`, the scheduler's `tick` and
 `tick_window` (dispatch streams, pending, stats, mode trace, final carry)
 with the reference's per-tick draws injected, the guard tier's rollback and
-retry, the engine's slot-availability forecast and the synthetic-decode
+retry, the engine's slot-availability forecast, the synthetic-decode
 `ServeEngine` (run summary, `health()`, latency records, the metrics
-registry).  The port's own contracts are pinned beside: `tick_window` equals
-K `tick` calls, a checkpoint survives two restores, and no step writes into
-the carry it was given.  Every compared value is an integer (or a float the
-reference computes from integers the same way): the tolerance is zero.
+registry) and `ServeEngine` with a reduced llama3.2-3b model (admissions,
+completion steps and `health()` in bf16 with EOS off; the tokens too in
+f32, both engines built in f32 by patching their `build_model` and
+`init_caches`).  The port's own contracts are pinned beside: `tick_window`
+equals K `tick` calls, a checkpoint survives two restores, and no step
+writes into the carry it was given.  Every compared value is an integer
+(or a float the reference computes from integers the same way): the
+tolerance is zero.  The model's logits are floats, held to a tolerance in
+tests/test_torch_models.py; here only what the engine derives from them is
+compared, exactly.
 """
 
 import dataclasses
 import functools
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+import repro.models.io as JIO
+import repro.models.registry as JMR
 import repro.serve.scheduler as JSM
+import repro_torch.models.io as TIO
+import repro_torch.models.registry as TMR
+from repro.configs.registry import reduced_config as j_reduced_config
 from repro.core.classifier.dataset import make_training_set as j_training_set
 from repro.core.classifier.tree import train_tree as j_train_tree
 from repro.core.errors import InvariantViolation as JInvariantViolation
@@ -28,7 +41,8 @@ from repro.serve.engine import EngineConfig as JEngineConfig
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.overload import OverloadConfig as JOverloadConfig
 from repro.workloads.traces import bursty_serve_workload as j_bursty
-from repro_torch.convert import carry_to_numpy
+from repro_torch.configs.registry import reduced_config
+from repro_torch.convert import carry_to_numpy, params_from_numpy
 from repro_torch.core.classifier.dataset import make_training_set
 from repro_torch.core.classifier.tree import train_tree
 from repro_torch.core.errors import InvariantViolation, WindowValidationError
@@ -36,6 +50,7 @@ from repro_torch.core.pqueue.schedules import Schedule as TSch
 from repro_torch.core.pqueue.schedules import step_draws
 from repro_torch.core.smartpq import MODE_AWARE, carry_fingerprint
 from repro_torch.core.smartpq import SmartPQConfig as TCfg
+from repro_torch.models.params import init_params
 from repro_torch.serve import (EngineConfig, OverloadConfig, Request,
                                ServeEngine, SmartPQScheduler)
 from repro_torch.workloads.traces import bursty_serve_workload
@@ -44,6 +59,7 @@ from torch_draws import draws_from_keys, scheduler_keys
 torch.set_num_threads(1)
 
 S, C, B, H = 4, 1024, 8, 256  # the small geometry of tests/test_serve.py
+MODEL_ARCH = "llama3.2-3b"  # the engine-with-a-model cases
 
 
 @pytest.fixture(scope="module")
@@ -422,11 +438,30 @@ def test_engine_run_matches_jax(tree, K):
 
 
 def test_engine_refuses_what_is_not_ported(tree, tmp_path):
-    """A model config raises, naming its ROADMAP item, instead of running
-    something else; the durable engine (`durable_dir`), ported since, runs
-    and reports its store in `health()`."""
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ServeEngine(object(), None, EngineConfig(), device="cpu", tree=tree)
+    """A dense model config builds (its bf16 caches of batch_size x
+    max_seq); a config of a family not ported yet raises, naming its
+    ROADMAP item, instead of running something else, and so does the int8
+    KV cache; the durable engine (`durable_dir`), ported since, runs and
+    reports its store in `health()`."""
+    cfg = reduced_config(MODEL_ARCH)
+    eng = ServeEngine(cfg, init_params(cfg, device="cpu"),
+                      EngineConfig(batch_size=2, max_seq=8), device="cpu",
+                      tree=tree)
+    assert eng.caches["k"].shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads,
+                                     cfg.resolved_head_dim)
+    assert eng.caches["v"].dtype == torch.bfloat16
+    for arch, item in (("granite-moe-1b-a400m", "8.1"),
+                       ("granite-moe-3b-a800m", "8.1"),
+                       ("mamba2-780m", "8.2"),
+                       ("jamba-1.5-large-398b", "8.2"),
+                       ("whisper-base", "8.3"),
+                       ("llama-3.2-vision-11b", "8.3")):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP queue 1 item {item}"):
+            ServeEngine(reduced_config(arch), None, EngineConfig(),
+                        device="cpu", tree=tree)
+    with pytest.raises(NotImplementedError, match="item 8.4"):
+        TMR.build_model(cfg, kv_int8=True, device="cpu")
     eng = ServeEngine(None, None, EngineConfig(
         batch_size=4, sched_window=4, durable_dir=str(tmp_path / "d")),
         device="cpu", tree=tree)
@@ -460,3 +495,102 @@ def test_engine_windows_drain_and_draws_run_out(tree):
     s.tick_window([[], [], []], [1, 1, 1])
     with pytest.raises(ValueError, match="draws cover 3 ticks"):
         s.tick([], 1)
+
+
+# ---------------------------------------------------------------------------
+# ServeEngine with a model
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def model_tree():
+    """The reference's reduced llama3.2-3b parameters
+    (`init_params(jax.random.key(0))`), as numpy."""
+    jm = JMR.build_model(j_reduced_config(MODEL_ARCH), remat=False)
+    return jax.tree.map(np.asarray, jm.init(jax.random.key(0))[0])
+
+
+def _e2e_workload(cls, new_tokens=4):
+    """tests/test_serve.py::test_engine_end_to_end's workload: bursts of 3
+    requests on 4 ticks."""
+    return [[cls(uid=i * 3 + j, prompt_len=8, max_new_tokens=new_tokens)
+             for j in range(3)] for i in range(4)]
+
+
+def _model_runs(tree, model_tree, mp, dtype, new_tokens=4, **ecfg):
+    """The reference engine and the port's on the same weights and
+    workload; in f32 both build their model and caches in f32 (their
+    `build_model` and `init_caches`, imported at call time, patched)."""
+    if dtype == "f32":
+        mp.setattr(JMR, "build_model", functools.partial(
+            JMR.build_model, compute_dtype=jnp.float32))
+        mp.setattr(JIO, "init_caches", functools.partial(
+            JIO.init_caches, dtype=jnp.float32))
+        mp.setattr(TMR, "build_model", functools.partial(
+            TMR.build_model, compute_dtype=torch.float32))
+        mp.setattr(TIO, "init_caches", functools.partial(
+            TIO.init_caches, dtype=torch.float32))
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    ref = JServeEngine(j_reduced_config(MODEL_ARCH),
+                       jax.tree.map(jnp.asarray, model_tree),
+                       JEngineConfig(**ecfg))
+    want = ref.run(_e2e_workload(JSM.Request, new_tokens), max_steps=300)
+    K = ecfg.get("sched_window", 1)
+    cfg = reduced_config(MODEL_ARCH)
+    eng = ServeEngine(cfg, params_from_numpy(model_tree, cfg, device="cpu",
+                                             dtype=td),
+                      EngineConfig(**ecfg), device="cpu", tree=tree,
+                      draws=draws_from_keys(scheduler_keys(
+                          0, want["steps"] + K), 16, 64, H))
+    got = eng.run(_e2e_workload(Request, new_tokens), max_steps=300)
+    assert eng.caches["k"].dtype == td
+    return ref, want, eng, got
+
+
+def _same_serving(ref, want, eng, got):
+    for k in want:
+        if k != "wall_s":
+            assert got[k] == want[k], k
+    assert eng.admit_step == ref.admit_step  # the dispatch stream
+    assert eng.done_step == ref.done_step
+    assert eng.health() == ref.health()
+    assert ({u: len(v) for u, v in eng.outputs.items()}
+            == {u: len(v) for u, v in ref.outputs.items()})
+    _carry_equal(ref.scheduler.carry, eng.scheduler.carry)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+@pytest.mark.parametrize("K", [1, 4])
+def test_model_engine_matches_jax(tree, model_tree, dtype, K):
+    """tests/test_serve.py's test_engine_end_to_end (K = 1) and
+    test_engine_windowed_scheduling_end_to_end (K = 4) against the
+    reference engine: every request completes with tokens, with the same
+    admissions, completion steps, health and carry; in bf16 with EOS off
+    (the logits agree to a tolerance, so a near tie may pick another
+    token), and in f32 with the tokens equal too."""
+    ecfg = dict(batch_size=4, max_seq=32, sched_window=K)
+    if dtype == "bf16":
+        ecfg["eos_token"] = -1
+    with pytest.MonkeyPatch.context() as mp:
+        ref, want, eng, got = _model_runs(tree, model_tree, mp, dtype, **ecfg)
+    assert got["completed"] == 12
+    assert all(len(v) > 0 for v in eng.outputs.values())
+    assert len(got["mode_trace"]) >= got["steps"]
+    _same_serving(ref, want, eng, got)
+    if dtype == "f32":
+        assert eng.outputs == ref.outputs
+
+
+def test_model_request_runs_into_full_like_jax(tree, model_tree):
+    """Requests that want more tokens than the cache holds end on `full`,
+    at length max_seq - 1, as the reference's do: the last cache row is
+    written and no write falls past it."""
+    ecfg = dict(batch_size=4, max_seq=8, eos_token=-1)
+    with pytest.MonkeyPatch.context() as mp:
+        ref, want, eng, got = _model_runs(tree, model_tree, mp, "bf16",
+                                          new_tokens=20, **ecfg)
+    _same_serving(ref, want, eng, got)
+    assert got["completed"] == 12
+    assert all(len(v) == 7 for v in eng.outputs.values())
+    assert int(eng.lengths.max()) == 7
+    assert bool(eng.caches["k"][:, :, 7].any())
