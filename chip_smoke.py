@@ -128,7 +128,25 @@ non-zero before its last line):
               (TF32 off) then bf16, within the CPU tests' tolerances, and
               their engine runs (EOS off) with the same admissions and
               completion steps (and tokens, in f32);
-  14. the total time; then the kernels JSON line, the card line, and the
+  14. path K  the MoE and SSM families at full width and the hybrid reduced
+              (`models/layers/moe.py`, `models/layers/ssm.py`): K1
+              granite-moe-3b-a800m (32 layers, d 1536, 40 experts padded
+              to 48, top 8) in bf16 on the card: the build, one layer's
+              `moe_block` on the card against the CPU (f32, TF32 off) at 8
+              tokens (cap 1) and 128 (cap 26) with the same routing and
+              kept assignments and the dropped share, and J3's engine runs
+              and readings (the decode step's bound beside the 40 real
+              experts' bound, its device µs by layer: attention decode, MoE
+              router, dispatch, expert products and combine, unembedding,
+              and the share of its assignments dropped); K2 mamba2-780m (48
+              SSD layers, d 1536, state 128): the build, `prefill` of 4
+              prompts of 256 tokens (one chunk) against 256 teacher-forced
+              `decode_step`s from zero states (logits, `ssm_h`,
+              `ssm_conv`) within `K2_ULPS`, and the engine runs (bound: the
+              weights and the f32 states read and written); K3 reduced
+              granite-moe-1b-a400m, mamba2-780m and jamba-1.5-large-398b
+              as J4;
+  15. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -142,7 +160,8 @@ path I a distributed step or a delegation round does, and its launches are
 those of this process's distributed calls and delegations plus those of
 I2's eight rank processes, each counted from 0 just before its steps; on
 path J an engine tick does, and its launches are those of J3's engine
-runs (the model itself launches no hand kernel).
+runs (the model itself launches no hand kernel); on path K likewise, K1's
+and K2's engine runs each counted from 0 just before it.
 `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/, path H's stores to build/chip_smoke/durable/.  The
@@ -154,7 +173,9 @@ non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
+import math
 import sys
 import time
 from pathlib import Path
@@ -552,6 +573,7 @@ PATH_KERNELS = {
     "I": ("windowed_merge", "topk_smallest", "twochoice_pick",
           "multiq_select"),
     "J": ("windowed_merge", "topk_smallest", "elim_sort"),
+    "K": ("windowed_merge", "topk_smallest", "elim_sort"),
 }
 PREFILL_BATCH = 4096
 # Kernel launches inside `run_window` calls only (prefills excluded), per
@@ -2906,22 +2928,35 @@ J_LABELS = {"_embed": "J embedding", "_attn_decode": "J attention decode",
             "_ffn": "J MLP", "_unembed": "J unembedding"}
 
 
+def model_ranges(model, labels):
+    """(object, attribute, label) triples of `model`'s methods named in
+    `labels` (attribute -> label), for `labelled`."""
+    return [(model, attr, label) for attr, label in labels.items()]
+
+
 @contextlib.contextmanager
-def labelled(model):
-    """The model's sublayers run inside `record_function` ranges named in
-    `J_LABELS`, so a profiler trace attributes each device call to one."""
+def labelled(targets):
+    """Each (object, attribute, label) of `targets` (a model's method or a
+    layer module's function) runs inside a `record_function` range named
+    `label`, so a profiler trace attributes each device call to the
+    innermost one."""
     from torch.profiler import record_function
 
-    for attr, label in J_LABELS.items():
-        def wrapped(*a, _fn=getattr(model, attr), _label=label, **kw):
+    saved = []
+    for obj, attr, label in targets:
+        def wrapped(*a, _fn=getattr(obj, attr), _label=label, **kw):
             with record_function(_label):
                 return _fn(*a, **kw)
-        setattr(model, attr, wrapped)
+        saved.append((obj, attr, obj.__dict__.get(attr)))
+        setattr(obj, attr, wrapped)
     try:
         yield
     finally:
-        for attr in J_LABELS:
-            delattr(model, attr)
+        for obj, attr, own in reversed(saved):
+            if own is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, own)
 
 
 def device_us_by_label(path):
@@ -2951,45 +2986,60 @@ def device_us_by_label(path):
     return out
 
 
-def decode_step_times(model, params, eng, nbytes, c=PATH_J):
+def kv_prefix_bytes(eng):
+    """The valid K/V prefix of the engine's caches, in bytes: what a decode
+    step must read of them."""
+    cfg = eng.model.cfg
+    filled = int(eng.lengths.sum()) + eng.lengths.numel()
+    return (2 * cfg.n_layers * filled * cfg.n_kv_heads
+            * cfg.resolved_head_dim * 2)
+
+
+# What a path's decode step reads besides the weights (for its bound),
+# how the line names it, and its `record_function` ranges.
+J_STEP = dict(tag="J", state_bytes=kv_prefix_bytes,
+              state="the valid K/V prefix",
+              ranges=lambda model: model_ranges(model, J_LABELS),
+              note=None)
+
+
+def decode_step_times(model, params, eng, nbytes, c=PATH_J, step=J_STEP):
     """One decode step on the engine's state after its run: ms a step as
     the host issues it (CUDA events around `reps` steps), the device's ms
     (CUDA events around a replayed CUDA graph of the step), the bound
-    (the weights and the valid prefix of the K/V cache, each read once,
-    over the memory rate), and one profiled step's device µs by layer."""
+    (the weights and `step["state_bytes"]`, each read once, over the
+    memory rate), and one profiled step's device µs by
+    `step["ranges"]`."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
     from repro_torch.kernels.timing import cuda_ms, graph_ms
 
-    cfg = model.cfg
-    step = lambda: model.decode_step(params, eng.caches, eng.tokens,  # noqa: E731
-                                     eng.lengths)
-    host_ms = cuda_ms(step, iters=c["reps"])
-    dev_ms = graph_ms(step, iters=2, replays=c["reps"])
-    filled = int(eng.lengths.sum()) + eng.lengths.numel()
-    cache_bytes = (2 * cfg.n_layers * filled * cfg.n_kv_heads
-                   * cfg.resolved_head_dim * 2)
-    bound_ms = (nbytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+    fn = lambda: model.decode_step(params, eng.caches, eng.tokens,  # noqa: E731
+                                   eng.lengths)
+    host_ms = cuda_ms(fn, iters=c["reps"])
+    dev_ms = graph_ms(fn, iters=2, replays=c["reps"])
+    bound_ms = (nbytes + step["state_bytes"](eng)) / HBM_BYTES_PER_S * 1e3
     # The first device calls of a profiler session can go unrecorded (the
     # embedding's, in a process that profiled before): a traced warm-up
     # step, discarded, goes first, and the active step's trace is written
     # when it ends.
     TRACE_DIR.mkdir(parents=True, exist_ok=True)
-    path = TRACE_DIR / f"J_decode_K{eng.ecfg.sched_window}.json"
+    path = TRACE_DIR / f"{step['tag']}_decode_K{eng.ecfg.sched_window}.json"
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                    schedule=schedule(wait=0, warmup=1, active=1),
                    on_trace_ready=lambda p: p.export_chrome_trace(str(path)))
-    with labelled(model), prof:
+    with labelled(step["ranges"](model)), prof:
         for _ in range(2):
-            step()
+            fn()
             torch.cuda.synchronize()
             prof.step()
     by = device_us_by_label(path)
     return host_ms, dev_ms, bound_ms, nbytes / HBM_BYTES_PER_S * 1e3, by
 
 
-def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda"):
+def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda",
+            step=J_STEP, tag="13 path J3"):
     """J3: the engine at full width on launch/serve.py's workload, at K = 1
     and 4: every request completed with a token at least, `health()`'s
     identities after every window, a mode trace; ms a tick, µs a token,
@@ -3013,8 +3063,10 @@ def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda"):
 
         eng = engine()
         before = dict(WINDOW_LAUNCHES)
+        t0 = time.perf_counter()
         summary, meas = serve_run(eng, workload(c["requests"], c["burst"]),
                                   10_000, check=True)
+        took = [time.perf_counter() - t0]
         launches = {k: n - before.get(k, 0)
                     for k, n in WINDOW_LAUNCHES.items()
                     if n - before.get(k, 0)}
@@ -3022,13 +3074,13 @@ def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda"):
         ticks += steps
         if summary["completed"] != c["requests"] or len(eng.outputs) != \
                 c["requests"] or min(map(len, eng.outputs.values())) < 1:
-            raise AssertionError(f"path J3 K={K}: {summary['completed']} of "
+            raise AssertionError(f"{tag} K={K}: {summary['completed']} of "
                                  f"{c['requests']} completed")
         if not summary["mode_trace"]:
-            raise AssertionError(f"path J3 K={K}: empty mode trace")
+            raise AssertionError(f"{tag} K={K}: empty mode trace")
         tokens = sum(map(len, eng.outputs.values()))
         wall = meas["wall_s"]
-        line = (f"[13 path J3] K={K}: {summary['completed']}/"
+        line = (f"[{tag}] K={K}: {summary['completed']}/"
                 f"{c['requests']} requests in {steps} ticks, {tokens} "
                 f"tokens, {c['batch_size']} slots, max_seq {c['max_seq']}: "
                 f"{wall * 1e3 / steps:.3f} ms/tick, {wall * 1e6 / tokens:.1f} "
@@ -3039,25 +3091,34 @@ def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda"):
                 f"({ {k: round(n / steps, 3) for k, n in launches.items()} } "
                 f"a tick)")
         if dev.type == "cuda":
+            t0 = time.perf_counter()
             host_ms, dev_ms, bound_ms, w_ms, by = decode_step_times(
-                model, params, eng, nbytes, c)
+                model, params, eng, nbytes, c, step)
+            took.append(time.perf_counter() - t0)
             lo, hi = c["profile"]
+            t0 = time.perf_counter()
             psummary, pmeas = serve_run(engine(), workload(
                 c["requests"], c["burst"]), 10_000, profile=(lo, hi))
+            took.append(time.perf_counter() - t0)
             ticks += psummary["steps"]
             unprofiled = sum(s for step0, (n, s) in meas["window_s"].items()
                              if lo <= step0 < hi)
-            share = busy_share(pmeas["prof"], f"J_K{K}", unprofiled)
+            share = busy_share(pmeas["prof"], f"{step['tag']}_K{K}",
+                               unprofiled)
             layers = "; ".join(f"{k} {us:.1f} us in {n} calls"
                                for k, (n, us) in sorted(by.items()))
             line += (f" | decode step: {host_ms:.3f} ms host-issued (CUDA "
                      f"events), {dev_ms:.3f} ms on the device (a replayed "
                      f"CUDA graph), bound {bound_ms:.3f} ms (weights "
-                     f"{w_ms:.3f} ms + the valid K/V prefix, at 3.35 TB/s); "
-                     f"device by layer: {layers} | ticks {lo}-{hi}: "
+                     f"{w_ms:.3f} ms + {step['state']}, at 3.35 TB/s)"
+                     + (step["note"](model, params, eng)
+                        if step["note"] else "")
+                     + f"; device by layer: {layers} | ticks {lo}-{hi}: "
                      + share_line(*share, per=f"{hi - lo} ticks",
                                   of="the same ticks unprofiled"))
-        log(line)
+        log(line + " | took " + ", ".join(
+            f"{t:.1f}s {what}" for t, what in zip(
+                took, ("run", "decode step readings", "profiled run"))))
         del eng
     return ticks
 
@@ -3083,11 +3144,13 @@ def f32_models():
         MR.build_model, MIO.init_caches = saved
 
 
-def path_j4(tree, c=PATH_J, device="cuda"):
-    """J4: reduced llama3.2-3b and gemma-2b with one numpy tree on the
-    card and on the CPU (`params_from_numpy`), f32 with TF32 off, then
-    bf16: `train_logits`, `prefill` (logits, caches) and teacher-forced
-    decode steps within the CPU tests' tolerances; the launcher's workload
+def path_j4(tree, c=PATH_J, device="cuda", tag="13 path J4"):
+    """J4 (and K3): the reduced models `c["small"]` with one numpy tree on
+    the card and on the CPU (`params_from_numpy`), f32 with TF32 off, then
+    bf16: `train_logits`, `prefill` (logits, every cache) and
+    teacher-forced decode steps within the CPU tests' tolerances (an SSD
+    family's prompt two of its chunks long; bf16 bounds from
+    `c["small_ulps"]`, else `J4_BF16_ULPS`); the launcher's workload
     through `ServeEngine` with EOS off and the same draws: the same
     admissions, completion steps, health and mode trace on both, and in
     f32 the same tokens."""
@@ -3106,9 +3169,12 @@ def path_j4(tree, c=PATH_J, device="cuda"):
         raise AssertionError("path J4: TF32 matmuls are on")
     cpu = torch.device("cpu")
     devs = (torch.device(device), cpu)
-    L, T = c["small_len"], c["small_steps"]
+    T = c["small_steps"]
+    n_req = c.get("small_requests", c["requests"])
     for arch in c["small"]:
         cfg = reduced_config(arch)
+        L = 2 * cfg.ssm.chunk if cfg.ssm else c["small_len"]
+        ulps = c.get("small_ulps", {}).get(arch, J4_BF16_ULPS)
         tree_np = params_to_numpy(init_params(
             cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
             device=cpu))
@@ -3130,8 +3196,8 @@ def path_j4(tree, c=PATH_J, device="cuda"):
                         torch.full((2,), t, dtype=torch.int32, device=d))
                     logits.append(lg)
                 outs.append(([x.cpu() for x in logits],
-                             [x.cpu() for x in (pc["k"], pc["v"],
-                                                caches["k"], caches["v"])]))
+                             [x.cpu() for x in [pc[k] for k in sorted(pc)]
+                              + [caches[k] for k in sorted(caches)]]))
             (lg_dev, kv_dev), (lg_cpu, kv_cpu) = outs
             if name == "f32":
                 err = (max(map(_max_abs, lg_dev, lg_cpu)),
@@ -3143,11 +3209,11 @@ def path_j4(tree, c=PATH_J, device="cuda"):
             else:
                 err = (max(map(_bf16_ulps, lg_dev, lg_cpu)),
                        max(map(_bf16_ulps, kv_dev, kv_cpu)))
-                ok = max(err) <= J4_BF16_ULPS
+                ok = max(err) <= ulps
                 what = (f"bf16 ulps logits {err[0]:.2f}, caches "
-                        f"{err[1]:.2f} (<= {J4_BF16_ULPS})")
+                        f"{err[1]:.2f} (<= {ulps})")
             if not ok:
-                raise AssertionError(f"path J4 {arch} {name}: {what}")
+                raise AssertionError(f"{tag} {arch} {name}: {what}")
             draws = serve_draws(400, 23)
             runs = []
             with (f32_models() if name == "f32"
@@ -3158,11 +3224,12 @@ def path_j4(tree, c=PATH_J, device="cuda"):
                         batch_size=c["small_slots"],
                         max_seq=c["small_max_seq"], eos_token=-1),
                         device=d, tree=tree, draws=draws)
-                    eng.run(workload(c["requests"], c["burst"]),
-                            max_steps=10_000)
-                    if eng.caches["k"].dtype != dt:
-                        raise AssertionError("path J4: caches not in "
-                                             f"{dt}")
+                    eng.run(workload(n_req, c["burst"]), max_steps=10_000)
+                    for k, cache in eng.caches.items():
+                        if cache.dtype != (torch.float32 if "ssm" in k
+                                           else dt):
+                            raise AssertionError(f"{tag}: cache {k} in "
+                                                 f"{cache.dtype}")
                     runs.append(eng)
             g, h = runs
             same = (g.admit_step == h.admit_step
@@ -3170,13 +3237,13 @@ def path_j4(tree, c=PATH_J, device="cuda"):
                     and g.health() == h.health()
                     and g.scheduler.stats.mode_trace
                     == h.scheduler.stats.mode_trace
-                    and len(g.done_step) == c["requests"])
+                    and len(g.done_step) == n_req)
             if not same or (name == "f32" and g.outputs != h.outputs):
-                raise AssertionError(f"path J4 {arch} {name}: the engine "
+                raise AssertionError(f"{tag} {arch} {name}: the engine "
                                      f"runs differ between card and CPU")
-            log(f"[13 path J4] {cfg.name} {name}: train_logits, prefill and "
+            log(f"[{tag}] {cfg.name} {name}: train_logits, prefill and "
                 f"{T} decode steps card against CPU: {what}; engine, "
-                f"{c['requests']} requests, EOS off: admissions, completion "
+                f"{n_req} requests, EOS off: admissions, completion "
                 f"steps, health and mode trace equal"
                 + (", tokens equal" if name == "f32" else ""))
 
@@ -3196,6 +3263,282 @@ def path_j(tree, c=PATH_J, device="cuda"):
     _, in_runs = counts_read("J")
     del model, params
     path_j4(tree, c, device)
+    return {k: in_runs.get(k, 0) for k in KO.LAUNCHES}, in_runs, ticks
+
+
+# ---------------------------------------------------------------------------
+# path K: the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+# K1: granite-moe-3b-a800m at full width (32 layers, d 1536, 24 heads, 8
+# KV heads, 40 experts, top 8, expert d_ff 512, vocab 49155)
+# in bf16: the build, one layer's `moe_block` on the card against the CPU
+# (f32, TF32 off) at a decode step's 8 tokens and at 128, and J3's engine
+# runs.  K2: mamba2-780m at full width (48 SSD layers, d 1536, d_inner
+# 3072, 48 heads of 64, state 128, chunk 256, vocab 50280): the build,
+# `prefill` of 4 prompts of 256 tokens (one chunk) against 256
+# teacher-forced `decode_step`s from zero states, and the engine runs.
+# K3: reduced granite-moe-1b-a400m, mamba2-780m and jamba-1.5-large-398b,
+# J4's checks.
+PATH_K = dict(moe="granite-moe-3b-a800m", ssm="mamba2-780m", reduced=False,
+              seed=0,
+              # the stored trees (granite-moe: 40 experts, unpadded)
+              expect={"granite-moe-3b-a800m": 3_298_985_472,
+                      "mamba2-780m": 780_038_400},
+              layer_T=(8, 128), prompts=4, prompt_len=256, requests=24,
+              burst=6, batch_size=8, max_seq=512, windows=(1, 4),
+              # 4 ticks profiled (one K = 4 window) and 5 steps timed: a
+              # granite-moe tick traces about 11,600 device calls
+              profile=(4, 8), reps=5,
+              small=("granite-moe-1b-a400m", "mamba2-780m",
+                     "jamba-1.5-large-398b"),
+              small_len=16, small_steps=8, small_slots=4, small_max_seq=64,
+              small_requests=12,
+              # bf16 bounds card against CPU, as tests/test_torch_gpu.py's
+              small_ulps={"jamba-1.5-large-398b": 8})
+# K1's layer check, the CPU tests' tolerances (tests/test_torch_moe.py).
+K1_LAYER = dict(out=2e-5, aux_rtol=1e-6)
+# K2's bound, chunked prefill against recurrent decode in bf16 at full
+# width, in bf16 ulps of the largest prefill value: the chunk's bf16
+# einsums and the recurrence's f32 updates round apart at every layer;
+# 0.78 (logits) to 2.74 (`ssm_h`) measured on an H100 (PERF.md §6).
+K2_ULPS = 8
+K1_LABELS = {"_embed": "K embedding", "_attn_decode": "K attention decode",
+             "_moe_ffn": "K MoE norm and residual",
+             "_unembed": "K unembedding"}
+K1_MOE_LABELS = {"route": "K MoE router", "balance_loss": "K MoE router",
+                 "dispatch": "K MoE dispatch", "experts": "K expert products",
+                 "combine": "K MoE combine"}
+K2_LABELS = {"_embed": "K embedding", "_ssm_decode": "K SSD decode",
+             "_unembed": "K unembedding"}
+
+
+def path_k_build(arch, c=PATH_K, device="cuda"):
+    """K1/K2's build: `arch` at full width on the card from a seeded
+    generator.  Returns (config, model, parameters, weight bytes)."""
+    import torch
+
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.models.params import leaves, param_layout
+    from repro_torch.models.registry import build_model
+
+    dev = torch.device(device)
+    cfg = (reduced_config if c["reduced"] else get_config)(arch)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    _sync(dev)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(c["seed"]))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
+    flat = dict(leaves(params))
+    n = sum(w.numel() for w in flat.values())
+    nbytes = sum(w.numel() * w.element_size() for w in flat.values())
+    want = sum(math.prod(shape) for _, (shape, _) in
+               leaves(param_layout(cfg)))
+    expect = c["expect"].get(cfg.name, want)
+    if n != want or n != expect:
+        raise AssertionError(f"{cfg.name}: {n} parameters, the layout has "
+                             f"{want}, expected {expect}")
+    std = float(flat["embed"][:4096].float().std())
+    if abs(std * cfg.d_model ** 0.5 - 1) > 0.05:
+        raise AssertionError(f"{cfg.name}: embed std {std}")
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+    dims = (f"{len(flat)} leaves, "
+            + (f"{model.moe_dims.n_experts_pad} experts, top "
+               f"{cfg.moe.top_k}, "
+               if cfg.moe else "")
+            + (f"d_inner {cfg.ssm.d_inner}, {model.ssm_dims.n_heads} heads "
+               f"of {cfg.ssm.head_dim}, state {cfg.ssm.d_state}, "
+               if cfg.ssm else ""))
+    log(f"[14 path K] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{dims}vocab {cfg.vocab}: {n:,} parameters, {nbytes:,} bytes, "
+        f"init {init_s:.3f}s on the {dev.type}, peak allocated "
+        + (f"{peak:,} bytes" if peak is not None else "not measured"))
+    return cfg, model, params, nbytes
+
+
+def path_k1_layer(cfg, model, c=PATH_K, device="cuda"):
+    """K1's layer check: one `moe_block` of `cfg` at full width, f32 with
+    TF32 off, from one numpy draw at the init scales, on the card and on
+    the CPU at each of `c["layer_T"]` tokens: the same routing, kept
+    assignments and dropped count, the output and aux within `K1_LAYER`;
+    the dropped share, and beside it the share on the reference's 16-wide
+    model axis (40 experts padded to 48: cap 1 at 8 tokens, the same
+    routing, since the pads never win)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.layers import moe as M
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("path K1: TF32 matmuls are on")
+    dims = model.moe_dims
+    D, E, F = cfg.d_model, dims.n_experts_pad, cfg.d_ff
+    rng = np.random.default_rng(c["seed"] + 7)
+    w_np = [(0.02 * rng.standard_normal(s)).astype(np.float32)
+            for s in ((D, E), (E, D, F), (E, D, F), (E, F, D))]
+    for T in c["layer_T"]:
+        x_np = rng.standard_normal((1, T, D)).astype(np.float32)
+        runs = []
+        for d in (torch.device(device), torch.device("cpu")):
+            x, rw, wg, wu, wd = (torch.as_tensor(a, device=d)
+                                 for a in [x_np] + w_np)
+            out, aux = M.moe_block(x, rw, wg, wu, wd, dims)
+            _, _, sel = M.route(x.reshape(T, D), rw, dims)
+            cap = M.capacity(T, dims)
+            keep = torch.stack([k for _, _, k in M.dispatch(sel, dims, cap)])
+            runs.append((out.cpu(), float(aux), sel.cpu(), keep.cpu(), cap))
+        (og, ag, sg, kg, cap), (oc, ac, sc, kc, _) = runs
+        err, aerr = _max_abs(og, oc), abs(ag - ac) / abs(ac)
+        if not (torch.equal(sg, sc) and torch.equal(kg, kc)):
+            raise AssertionError(f"path K1 T={T}: routing or kept "
+                                 f"assignments differ between card and CPU")
+        if err > K1_LAYER["out"] or aerr > K1_LAYER["aux_rtol"]:
+            raise AssertionError(f"path K1 T={T}: max |diff| {err:.3g}, aux "
+                                 f"rel {aerr:.3g} over {K1_LAYER}")
+        n_drop = int((~kc).sum())
+        wide = dataclasses.replace(dims, n_experts_pad=-(-E // 16) * 16)
+        cap16 = M.capacity(T, wide)
+        drop16 = sum(int((~k).sum())
+                     for _, _, k in M.dispatch(sc, wide, cap16))
+        log(f"[14 path K1] moe_block T={T}, f32, card against CPU: cap "
+            f"{cap}, the same routing and kept assignments, {n_drop} of "
+            f"{kc.numel()} assignments dropped (share {n_drop / kc.numel():.4f}"
+            f"; {wide.n_experts_pad} experts on a 16-wide axis: cap {cap16}, "
+            f"share {drop16 / kc.numel():.4f}); max |diff| {err:.3g} (<= "
+            f"{K1_LAYER['out']}), aux {ac:.6f} rel diff {aerr:.3g} (<= "
+            f"{K1_LAYER['aux_rtol']})")
+
+
+def _moe_drop_note(model, params, eng):
+    """The share of one decode step's assignments dropped for capacity, all
+    layers, on the engine's state (read after the step)."""
+    from repro_torch.models.layers import moe as M
+
+    keeps = []
+    dispatch = M.dispatch
+
+    def recording(sel, dims, cap):
+        slots = dispatch(sel, dims, cap)
+        keeps.extend(k for _, _, k in slots)
+        return slots
+
+    M.dispatch = recording
+    try:
+        model.decode_step(params, eng.caches, eng.tokens, eng.lengths)
+    finally:
+        M.dispatch = dispatch
+    total = sum(k.numel() for k in keeps)
+    dropped = sum(int((~k).sum()) for k in keeps)
+    return (f"; a decode step drops {dropped} of {total} assignments "
+            f"(share {dropped / total:.4f}, cap "
+            f"{M.capacity(eng.tokens.numel(), model.moe_dims)})")
+
+
+def ssm_state_bytes(eng):
+    """The SSD states a decode step reads and writes (f32), in bytes."""
+    return sum(2 * t.numel() * t.element_size() for t in eng.caches.values())
+
+
+def _k1_ranges(model):
+    """K1's ranges: the model's methods and the MoE layer's stages."""
+    from repro_torch.models.layers import moe
+
+    return model_ranges(model, K1_LABELS) + [
+        (moe, f, label) for f, label in K1_MOE_LABELS.items()]
+
+
+K1_STEP = dict(tag="K1", state_bytes=kv_prefix_bytes,
+               state="the valid K/V prefix", ranges=_k1_ranges,
+               note=_moe_drop_note)
+K2_STEP = dict(tag="K2", state_bytes=ssm_state_bytes,
+               state="the f32 SSD states read and written",
+               ranges=lambda model: model_ranges(model, K2_LABELS),
+               note=None)
+
+
+def path_k2_identity(cfg, model, params, c=PATH_K, device="cuda"):
+    """K2: the chunked prefill equals the recurrence at full width:
+    `prefill` of P prompts of L tokens against L teacher-forced
+    `decode_step`s from zero states (the last logits, `ssm_h` and
+    `ssm_conv`), within `K2_ULPS`."""
+    import torch
+
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import padded_vocab
+
+    dev = torch.device(device)
+    P, L = c["prompts"], c["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(c["seed"] + 1)
+    tok = torch.randint(0, cfg.vocab, (P, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    _sync(dev)
+    t0 = time.perf_counter()
+    want, pre = model.prefill(params, {"tokens": tok})
+    _sync(dev)
+    pre_s = time.perf_counter() - t0
+    caches = init_caches(cfg, P, L, device=dev)
+    t0 = time.perf_counter()
+    for t in range(L):
+        got, caches = model.decode_step(
+            params, caches, tok[:, t:t + 1],
+            torch.full((P,), t, dtype=torch.int32, device=dev))
+    _sync(dev)
+    dec_s = time.perf_counter() - t0
+    errs = {"decode logits": _bf16_ulps(got, want),
+            "ssm_h": _bf16_ulps(caches["ssm_h"], pre["ssm_h"]),
+            "ssm_conv": _bf16_ulps(caches["ssm_conv"], pre["ssm_conv"])}
+    if tuple(got.shape) != (P, padded_vocab(cfg)) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"path K2: logits {tuple(got.shape)} not "
+                             f"finite or not (P, V_pad)")
+    bad = {k: v for k, v in errs.items() if v > K2_ULPS}
+    log(f"[14 path K2] {P} prompts of {L} tokens ({L // cfg.ssm.chunk} "
+        f"chunk): prefill {pre_s * 1e3:.1f} ms, {L} teacher-forced decode "
+        f"steps {dec_s * 1e3 / L:.2f} ms a step (host-issued); bf16 ulps of "
+        f"the largest prefill value (at most {K2_ULPS}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in errs.items())
+        + f"; largest |logit| {float(want.float().abs().max()):.4f}")
+    if bad:
+        raise AssertionError(f"path K2: {bad} bf16 ulps above {K2_ULPS}")
+
+
+def path_k(tree, c=PATH_K, device="cuda"):
+    """Phase 14: K1-K3.  The path's launch counts are those of K1's and
+    K2's unprofiled engine runs, each counted from 0 just before it (the
+    models launch no hand kernel; the scheduler's kernels run in the
+    engine's ticks).  Returns (launches, launches inside the runs,
+    ticks)."""
+    import torch
+
+    from repro_torch.kernels import ops as KO
+
+    in_runs, ticks, took = {}, 0, []
+    for arch, step, tag in ((c["moe"], K1_STEP, "14 path K1"),
+                            (c["ssm"], K2_STEP, "14 path K2")):
+        t0 = time.perf_counter()
+        cfg, model, params, nbytes = path_k_build(arch, c, device)
+        if cfg.moe:
+            path_k1_layer(cfg, model, c, device)
+        else:
+            path_k2_identity(cfg, model, params, c, device)
+        counts_reset()
+        ticks += path_j3(tree, cfg, model, params, nbytes, c, device,
+                         step=step, tag=tag)
+        for k, n in counts_read("K")[1].items():
+            in_runs[k] = in_runs.get(k, 0) + n
+        del model, params
+        if torch.device(device).type == "cuda":
+            torch.cuda.empty_cache()
+        took.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    path_j4(tree, c, device, tag="14 path K3")
+    log(f"[14 path K] K1 {took[0]:.1f}s, K2 {took[1]:.1f}s, K3 "
+        f"{time.perf_counter() - t0:.1f}s")
     return {k: in_runs.get(k, 0) for k in KO.LAUNCHES}, in_runs, ticks
 
 
@@ -3299,12 +3642,17 @@ def main() -> int:
     log(f"[13 path J] {time.perf_counter() - t0:.1f}s | launches "
         f"{path_j_counts[0]} (inside its engine runs {path_j_counts[1]}, "
         f"{path_j_counts[2]} ticks)")
-    log(f"[14 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_k_counts = path_k(tree)
+    log(f"[14 path K] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_k_counts[0]} (inside its engine runs {path_k_counts[1]}, "
+        f"{path_k_counts[2]} ticks)")
+    log(f"[15 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
         "G": path_g_counts, "H": path_h_counts, "I": path_i_counts,
-        "J": path_j_counts}, phase2, floor)))
+        "J": path_j_counts, "K": path_k_counts}, phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,13 @@ import torch
 import torch.nn.functional as F
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu` as XLA rounds it: ``x * (1 / (1 + exp(-x)))``, each op
+    rounded to the input dtype (bit-equal in bf16, where `F.silu` rounds
+    once).  Every silu of the port is this one."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def gated_mlp(
     x: torch.Tensor,  # (B, S, D)
     w_gate: torch.Tensor,  # (D, F)
@@ -20,7 +27,7 @@ def gated_mlp(
     g = x @ w_gate
     u = x @ w_up
     if act == "silu":
-        h = F.silu(g) * u
+        h = silu(g) * u
     elif act == "gelu":  # GeGLU (gemma)
         h = F.gelu(g, approximate="tanh") * u
     else:

@@ -1,22 +1,32 @@
-"""The model: full-sequence forward, prefill and decode for the dense family.
+"""The model: full-sequence forward, prefill and decode for the dense, MoE,
+SSM and hybrid families.
 
 Counterpart of src/repro/models/model.py (`Model._norm`, `_embed`,
-`_unembed`, `_attn_full`, `_attn_decode`, `_ffn`, the dense branch of
-`_stack_full`, `train_logits`, `prefill` and the dense branch of
-`decode_step`), with the reference's signatures and return values.  The
-parameters are passed in, as the reference's are: a nested dict of
-layer-stacked tensors (`params.init_params`, `convert.params_from_numpy`).
-The layer loop is a Python ``for`` over the stacked leaves (``w[l]`` is a
-view), in place of `lax.scan`.
+`_unembed`, `_attn_full`, `_attn_decode`, `_ffn`, `_moe_ffn`,
+`_ssm_layer`, the dense, moe and ssm branches of `_stack_full`,
+`_hybrid_stack_full`, `train_logits`, `prefill`, the dense, moe and ssm
+branches of `decode_step` and `_hybrid_decode`), with the reference's
+signatures and return values.  The parameters are passed in, as the
+reference's are: a nested dict of layer-stacked tensors
+(`params.init_params`, `convert.params_from_numpy`).  The layer loop is a
+Python ``for`` over the stacked leaves (``w[l]`` is a view), in place of
+`lax.scan`; the hybrid family's loops over superblocks and, inside one,
+over the period's positions: attention at `hybrid_attn_pos` and SSD
+elsewhere, each followed by the MoE FFN on odd positions and the dense
+one on even ones.
 
 Each weight is cast to the compute dtype where the reference casts it
 (every layer, every step); stored in that dtype already (`init_params`'
 default) the cast is a no-op, which gives the reference's numbers without
-an f32 copy on the card.  `decode_step` writes the new K/V rows into the
-caches in place (the reference donates them) and returns the same dict;
-the caller keeps every length below the cache's depth (the engine ends a
-request on `full`), since an index past it raises on the CPU and is a
-device-side assert on the card.  The other families raise
+an f32 copy on the card.  The one leaf the reference reads uncast, the
+ssm family's decode norm, is stored in f32 (`params.F32_LEAVES`).
+`decode_step` writes the new K/V rows and the SSD states (`ssm_h`,
+`ssm_conv`, f32) into the caches in place (the reference donates them)
+and returns the same dict; the caller keeps every length below the
+cache's depth (the engine ends a request on `full`), since an index past
+it raises on the CPU and is a device-side assert on the card.  The MoE
+layer's aux loss is summed over the layers by `train_logits` and dropped
+by decode, as in the reference.  The enc-dec and VLM families raise
 `NotImplementedError` naming their ROADMAP item (`params.NOT_PORTED`); so
 does the int8 KV cache (`registry.build_model`).
 """
@@ -31,8 +41,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.attention import (AttnDims, attend_chunked,
                                                  project_qkv)
 from repro_torch.models.layers.mlp import dense_mlp, gated_mlp
+from repro_torch.models.layers.moe import MoEDims, moe_block
 from repro_torch.models.layers.norm import layer_norm, rms_norm
-from repro_torch.models.params import init_params, require_ported
+from repro_torch.models.layers.ssm import (SSMState, ssd_decode_step,
+                                           ssd_forward)
+from repro_torch.models.params import (init_params, padded_experts,
+                                       require_ported, ssm_dims)
 from repro_torch.utils.hostsync import resolve_device
 
 Tree = Dict[str, Any]
@@ -49,9 +63,9 @@ class _DecodeIndex(NamedTuple):
 
 
 class Model(torch.nn.Module):
-    """The dense family's forward passes on `device` (the card unless the
-    caller names another).  Holds no weights: every entry point takes
-    them, as the reference's."""
+    """A config's forward passes on `device` (the card unless the caller
+    names another).  Holds no weights: every entry point takes them, as
+    the reference's."""
 
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
                  kv_chunk: int = 2048, device=None):
@@ -67,6 +81,15 @@ class Model(torch.nn.Module):
             head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta,
         )
+        if cfg.ssm:
+            self.ssm_dims = ssm_dims(cfg)
+        if cfg.moe:
+            self.moe_dims = MoEDims(
+                n_experts=cfg.moe.n_experts,
+                n_experts_pad=padded_experts(cfg),
+                top_k=cfg.moe.top_k,
+                capacity_factor=cfg.moe.capacity_factor,
+            )
 
     def init(self, generator: Optional[torch.Generator] = None) -> Tree:
         """Random parameters in the compute dtype on the model's device."""
@@ -80,8 +103,9 @@ class Model(torch.nn.Module):
             return layer_norm(x, scale, bias)
         return rms_norm(x, scale)
 
-    def _layer(self, stacked: Tree, i: int) -> Tree:
-        """Layer `i`'s leaves (views), floats in the compute dtype."""
+    def _layer(self, stacked: Tree, *i: int) -> Tree:
+        """Layer `i`'s leaves (views; the hybrid family's two indices,
+        superblock and position), floats in the compute dtype."""
         return {k: w[i].to(self.compute_dtype) if w.is_floating_point()
                 else w[i] for k, w in stacked.items()}
 
@@ -125,20 +149,97 @@ class Model(torch.nn.Module):
                           self.cfg.act)
         return x + y
 
+    def _moe_ffn(self, x, p):
+        h = self._norm(x, p["norm"])
+        y, aux = moe_block(h, p["router"], p["e_gate"], p["e_up"],
+                           p["e_down"], self.moe_dims)
+        return x + y, aux
+
+    def _ssm_layer(self, x, p, h0=None):
+        h = self._norm(x, p["norm"])
+        y, h_last, conv_tail = ssd_forward(h, p, self.ssm_dims, h0)
+        return x + y, h_last, conv_tail
+
     def _stack_full(self, params, x, positions, collect_cache: bool):
-        """Returns (x, caches, aux): caches {"k", "v"} stacked over the
-        layers (decode feeds on them), or None."""
+        """Returns (x, caches, aux): caches the family's per-layer state
+        stacked over the layers ({"k", "v"}, {"ssm_h", "ssm_conv"} or all
+        four; decode feeds on them), or None; aux the MoE layers' summed
+        load-balancing loss (0 without MoE)."""
+        cfg = self.cfg
+        if cfg.family == "hybrid":
+            return self._hybrid_stack_full(params, x, positions,
+                                           collect_cache)
+        aux = torch.zeros((), device=x.device)
+        if cfg.family == "ssm":
+            hs, convs = [], []
+            for i in range(cfg.n_layers):
+                x, h_last, conv_tail = self._ssm_layer(
+                    x, self._layer(params["ssm"], i))
+                hs.append(h_last)
+                convs.append(conv_tail)
+            caches = ({"ssm_h": torch.stack(hs),
+                       "ssm_conv": torch.stack(convs)}
+                      if collect_cache else None)
+            return x, caches, aux
         ks, vs = [], []
-        for i in range(self.cfg.n_layers):
+        for i in range(cfg.n_layers):
             x, kv = self._attn_full(x, self._layer(params["attn"], i),
                                     positions, positions, collect_cache)
-            x = self._ffn(x, self._layer(params["mlp"], i))
+            if cfg.moe:
+                x, a = self._moe_ffn(x, self._layer(params["moe"], i))
+                aux = aux + a
+            else:
+                x = self._ffn(x, self._layer(params["mlp"], i))
             if collect_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
         caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
                   if collect_cache else None)
-        return x, caches, torch.zeros((), device=x.device)
+        return x, caches, aux
+
+    def _hybrid_ffn(self, x, params, sb: int, pos: int, slot: dict):
+        """The FFN after position `pos` of superblock `sb`: MoE on odd
+        positions, dense on even ones (`slot` counts each kind's index in
+        the superblock).  Returns (x, aux or None)."""
+        if pos % self.cfg.moe.every == 1:
+            x, a = self._moe_ffn(x, self._layer(params["moe"], sb,
+                                                slot["moe"]))
+            slot["moe"] += 1
+            return x, a
+        x = self._ffn(x, self._layer(params["mlp"], sb, slot["mlp"]))
+        slot["mlp"] += 1
+        return x, None
+
+    def _hybrid_stack_full(self, params, x, positions, collect_cache):
+        cfg = self.cfg
+        aux = torch.zeros((), device=x.device)
+        ks, vs, hs, convs = [], [], [], []
+        for sb in range(cfg.n_layers // cfg.hybrid_period):
+            slot = {"ssm": 0, "moe": 0, "mlp": 0}
+            sb_h, sb_conv = [], []
+            for pos in range(cfg.hybrid_period):
+                if pos == cfg.hybrid_attn_pos:
+                    x, kv = self._attn_full(
+                        x, self._layer(params["attn"], sb), positions,
+                        positions, collect_cache)
+                else:
+                    x, h_last, conv_tail = self._ssm_layer(
+                        x, self._layer(params["ssm"], sb, slot["ssm"]))
+                    sb_h.append(h_last)
+                    sb_conv.append(conv_tail)
+                    slot["ssm"] += 1
+                x, a = self._hybrid_ffn(x, params, sb, pos, slot)
+                if a is not None:
+                    aux = aux + a
+            if collect_cache:
+                ks.append(kv[0])
+                vs.append(kv[1])
+                hs.append(torch.stack(sb_h))
+                convs.append(torch.stack(sb_conv))
+        caches = ({"k": torch.stack(ks), "v": torch.stack(vs),
+                   "ssm_h": torch.stack(hs), "ssm_conv": torch.stack(convs)}
+                  if collect_cache else None)
+        return x, caches, aux
 
     # -- public entry points -------------------------------------------------
 
@@ -184,14 +285,32 @@ class Model(torch.nn.Module):
         logits = self._unembed(params, x[:, -1:, :])[:, 0, :]
         return logits, cache
 
+    def _ssm_decode(self, x, norm, p, h, conv):
+        """One SSD layer's decode step; the states `h` and `conv` (cache
+        views) are written in place."""
+        y, st = ssd_decode_step(self._norm(x, norm), SSMState(h=h, conv=conv),
+                                p, self.ssm_dims)
+        h.copy_(st.h)
+        conv.copy_(st.conv)
+        return x + y
+
     def decode_step(self, params, caches: Tree, tokens, lengths):
         """One decode step.  tokens (B, 1), lengths (B,) current cache
-        fill.  Writes the step's K/V into `caches` in place and returns
-        (logits (B, V_pad), caches)."""
+        fill.  Writes the step's K/V and SSD states into `caches` in place
+        and returns (logits (B, V_pad), caches)."""
         if "k_scale" in caches:
             raise NotImplementedError(
                 "int8 KV caches: ROADMAP queue 1 item 8.4 (kv_int8)")
+        cfg = self.cfg
         x = self._embed(params, tokens)
+        if cfg.family == "ssm":
+            for i in range(cfg.n_layers):
+                # the reference normalizes with the stored (uncast) scale
+                x = self._ssm_decode(x, params["ssm"]["norm"][i],
+                                     self._layer(params["ssm"], i),
+                                     caches["ssm_h"][i],
+                                     caches["ssm_conv"][i])
+            return self._unembed(params, x)[:, 0, :], caches
         B = tokens.shape[0]
         S_max = caches["k"].shape[2]
         pos = torch.arange(S_max, dtype=torch.int32,
@@ -200,9 +319,34 @@ class Model(torch.nn.Module):
             rows=torch.arange(B, device=lengths.device),
             at=lengths.long(), qpos=lengths[:, None], pos=pos,
             valid=pos < (lengths[:, None] + 1))
-        for i in range(self.cfg.n_layers):
+        if cfg.family == "hybrid":
+            x = self._hybrid_decode(params, caches, x, idx)
+            return self._unembed(params, x)[:, 0, :], caches
+        for i in range(cfg.n_layers):
             x = self._attn_decode(x, self._layer(params["attn"], i),
                                   caches["k"][i], caches["v"][i], idx)
-            x = self._ffn(x, self._layer(params["mlp"], i))
+            if cfg.moe:
+                x, _ = self._moe_ffn(x, self._layer(params["moe"], i))
+            else:
+                x = self._ffn(x, self._layer(params["mlp"], i))
         logits = self._unembed(params, x)[:, 0, :]
         return logits, caches
+
+    def _hybrid_decode(self, params, caches, x, idx: _DecodeIndex):
+        cfg = self.cfg
+        for sb in range(cfg.n_layers // cfg.hybrid_period):
+            slot = {"ssm": 0, "moe": 0, "mlp": 0}
+            for pos in range(cfg.hybrid_period):
+                if pos == cfg.hybrid_attn_pos:
+                    x = self._attn_decode(x, self._layer(params["attn"], sb),
+                                          caches["k"][sb], caches["v"][sb],
+                                          idx)
+                else:
+                    si = slot["ssm"]
+                    p = self._layer(params["ssm"], sb, si)
+                    x = self._ssm_decode(x, p["norm"], p,
+                                         caches["ssm_h"][sb, si],
+                                         caches["ssm_conv"][sb, si])
+                    slot["ssm"] += 1
+                x, _ = self._hybrid_ffn(x, params, sb, pos, slot)
+        return x

@@ -1,21 +1,26 @@
-"""Parameter initialization for the dense family.
+"""Parameter initialization for the dense, MoE, SSM and hybrid families.
 
 Counterpart of src/repro/models/params.py: nested dicts with layer-stacked
-leaves (a leading layer axis), the reference's key paths, shapes and
-scales (0.02; ``wo`` and ``w_down`` over sqrt(2L); ``embed`` and ``head``
-over sqrt(D); norms and biases zero).  The draws come from an explicit
-`torch.Generator`, whose stream is not `jax.random`'s: a test that needs
-the reference's numbers converts its tree (`convert.params_from_numpy`).
-The leaves are stored in the compute dtype, so no f32 copy stays on the
-card; a stacked leaf is drawn in f32 and cast one layer at a time, which
-keeps the peak near the stored total.  The spec tree of `PartitionSpec`s
-waits for the sharding slice (ROADMAP queue 1 item 8.5).
+leaves (a leading layer axis; the hybrid family's SSD, MoE and MLP leaves
+two, superblock then position), the reference's key paths, shapes and
+scales (0.02; ``wo``, ``w_down``, ``e_down`` and ``out_proj`` over
+sqrt(2L); ``embed`` and ``head`` over sqrt(D); ``conv_w`` 0.1; norms and
+biases zero; the SSD's ``A_log`` log(1..H) and ``D`` one).  The port has
+no mesh, so the experts are padded as the reference's mesh-free
+`build_model` pads them (`MODEL_AXIS`): the port's tree takes that
+model's `init` tree leaf for leaf.  The draws come from an explicit `torch.Generator`, whose
+stream is not `jax.random`'s: a test that needs the reference's numbers
+converts its tree (`convert.params_from_numpy`).  The leaves are stored in
+the compute dtype, so no f32 copy stays on the card; a stacked leaf is
+drawn in f32 and cast one matrix at a time, which keeps the peak near the
+stored total.  The spec tree of `PartitionSpec`s waits for the sharding
+slice (ROADMAP queue 1 item 8.5).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 
@@ -26,36 +31,45 @@ from repro_torch.utils.hostsync import resolve_device
 Tree = Dict[str, Any]
 
 VOCAB_PAD = 128  # pad vocab to multiples of 128
+# The experts pad to a multiple of the model axis; with no mesh the
+# reference's `build_model` takes 1 (src/repro/models/registry.py).
+MODEL_AXIS = 1
 
 # The families whose modules are still to port, with their ROADMAP items.
 NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 8.1 (MoE: layers/moe.py, _moe_ffn)",
-    "ssm": "ROADMAP queue 1 item 8.2 (SSM and hybrid: layers/ssm.py)",
-    "hybrid": "ROADMAP queue 1 item 8.2 (SSM and hybrid: layers/ssm.py)",
     "encdec": "ROADMAP queue 1 item 8.3 (enc-dec and VLM)",
     "vlm": "ROADMAP queue 1 item 8.3 (enc-dec and VLM)",
 }
+PORTED = ("dense", "moe", "ssm", "hybrid")
 
-# Leaves the reference reads without casting to the compute dtype
-# (model.py's `_unembed` passes `final_norm_b` as stored): kept in f32.
-F32_LEAVES = ("final_norm_b",)
+# Leaves the reference reads without casting to the compute dtype: kept in
+# f32 (model.py's `_unembed` passes `final_norm_b` as stored, and the ssm
+# family's `decode_step` normalizes with the stored `ssm/norm`).
+F32_LEAVES = ("final_norm_b", "ssm/norm")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
     return pad_to_multiple(cfg.vocab, VOCAB_PAD)
 
 
+def padded_experts(cfg: ModelConfig) -> int:
+    assert cfg.moe is not None
+    return pad_to_multiple(cfg.moe.n_experts, MODEL_AXIS)
+
+
 def require_ported(cfg: ModelConfig) -> None:
     if cfg.family in NOT_PORTED:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({NOT_PORTED[cfg.family]}); the dense family is")
-    if cfg.family != "dense":
+            f"({NOT_PORTED[cfg.family]}); the {', '.join(PORTED)} families "
+            f"are")
+    if cfg.family not in PORTED:
         raise ValueError(cfg.family)
 
 
-# (shape, scale): scale None is a zero leaf.
-Leaf = Tuple[Tuple[int, ...], Optional[float]]
+# (shape, init): init a float is N(0, init^2), None a zero leaf, "ones" a
+# leaf of ones, "a_log" the SSD's log(1..H) along the last axis.
+Leaf = Tuple[Tuple[int, ...], Union[float, str, None]]
 
 
 def _attn_layout(cfg: ModelConfig, n: int) -> Dict[str, Leaf]:
@@ -98,12 +112,58 @@ def _mlp_layout(cfg: ModelConfig, n: int) -> Dict[str, Leaf]:
     }
 
 
+def _moe_layout(cfg: ModelConfig, n: int, e_pad: int) -> Dict[str, Leaf]:
+    D, F = cfg.d_model, cfg.d_ff
+    s = 0.02
+    return {
+        "norm": ((n, D), None),
+        "router": ((n, D, e_pad), s),
+        "e_gate": ((n, e_pad, D, F), s),
+        "e_up": ((n, e_pad, D, F), s),
+        "e_down": ((n, e_pad, F, D), s / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def ssm_dims(cfg: ModelConfig):
+    from repro_torch.models.layers.ssm import SSMDims
+
+    sc = cfg.ssm
+    return SSMDims(d_model=cfg.d_model, d_inner=sc.d_inner,
+                   head_dim=sc.head_dim, d_state=sc.d_state,
+                   n_groups=sc.n_groups, d_conv=sc.d_conv, chunk=sc.chunk)
+
+
+def _ssm_layout(cfg: ModelConfig, n: int) -> Dict[str, Leaf]:
+    dims = ssm_dims(cfg)
+    s = 0.02
+    H = dims.n_heads
+    return {
+        "norm": ((n, cfg.d_model), None),
+        "in_proj": ((n, cfg.d_model, dims.in_proj_out), s),
+        "conv_w": ((n, dims.d_conv, dims.conv_channels), 0.1),
+        "conv_b": ((n, dims.conv_channels), None),
+        "A_log": ((n, H), "a_log"),
+        "dt_bias": ((n, H), None),
+        "D": ((n, H), "ones"),
+        "out_proj": ((n, dims.d_inner, cfg.d_model),
+                     s / math.sqrt(2 * cfg.n_layers)),
+    }
+
+
+def _restack(layout: Dict[str, Leaf], nsb: int, per: int) -> Dict[str, Leaf]:
+    """Leading axis nsb * per -> (nsb, per), as the reference's hybrid
+    branch reshapes its stacked leaves."""
+    return {k: ((nsb, per) + shape[1:], init)
+            for k, (shape, init) in layout.items()}
+
+
 def param_layout(cfg: ModelConfig) -> Tree:
-    """The parameter tree as (shape, scale) leaves, in the reference's
+    """The parameter tree as (shape, init) leaves, in the reference's
     key order (which is also its draw order)."""
     require_ported(cfg)
     V = padded_vocab(cfg)
     D = cfg.d_model
+    L = cfg.n_layers
     layout: Tree = {
         "embed": ((V, D), 1.0 / math.sqrt(D)),
         "final_norm": ((D,), None),
@@ -112,8 +172,32 @@ def param_layout(cfg: ModelConfig) -> Tree:
         layout["final_norm_b"] = ((D,), None)
     if not cfg.tie_embeddings:
         layout["head"] = ((D, V), 1.0 / math.sqrt(D))
-    layout["attn"] = _attn_layout(cfg, cfg.n_layers)
-    layout["mlp"] = _mlp_layout(cfg, cfg.n_layers)
+    fam = cfg.family
+    if fam in ("dense", "moe"):
+        layout["attn"] = _attn_layout(cfg, L)
+        if cfg.moe:
+            n_moe = L // cfg.moe.every
+            layout["moe"] = _moe_layout(cfg, n_moe, padded_experts(cfg))
+            if cfg.moe.every > 1:
+                layout["mlp"] = _mlp_layout(cfg, L - n_moe)
+        else:
+            layout["mlp"] = _mlp_layout(cfg, L)
+    elif fam == "ssm":
+        layout["ssm"] = _ssm_layout(cfg, L)
+    else:  # hybrid: period-long superblocks
+        period = cfg.hybrid_period
+        nsb = L // period
+        n_mamba = period - 1
+        n_moe_sb = period // cfg.moe.every  # MoE slots per superblock
+        n_dense_sb = period - n_moe_sb
+        layout["attn"] = _attn_layout(cfg, nsb)
+        layout["ssm"] = _restack(_ssm_layout(cfg, nsb * n_mamba), nsb,
+                                 n_mamba)
+        layout["moe"] = _restack(
+            _moe_layout(cfg, nsb * n_moe_sb, padded_experts(cfg)),
+            nsb, n_moe_sb)
+        layout["mlp"] = _restack(_mlp_layout(cfg, nsb * n_dense_sb), nsb,
+                                 n_dense_sb)
     return layout
 
 
@@ -133,9 +217,9 @@ def leaf_dtype(path: str, dtype: torch.dtype) -> torch.dtype:
 
 def _draw(generator: torch.Generator, shape, scale: float, dtype, device):
     """N(0, scale^2) in f32 on the generator's device, cast to `dtype` on
-    `device`: a stacked (3-D) leaf one layer at a time."""
+    `device`: a stacked leaf one matrix (its last two axes) at a time."""
     out = torch.empty(shape, dtype=dtype, device=device)
-    parts = out if len(shape) == 3 else out[None]
+    parts = out.view(-1, *shape[-2:]) if len(shape) >= 3 else out[None]
     for part in parts:
         z = torch.randn(part.shape, generator=generator,
                         device=generator.device)
@@ -143,9 +227,22 @@ def _draw(generator: torch.Generator, shape, scale: float, dtype, device):
     return out
 
 
+def _fill(shape, init, dtype, device) -> torch.Tensor:
+    if init is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    if init == "ones":
+        return torch.ones(shape, dtype=dtype, device=device)
+    if init == "a_log":
+        H = shape[-1]
+        row = torch.log(torch.arange(1, H + 1, dtype=torch.float32,
+                                     device=device))
+        return row.expand(shape).to(dtype).contiguous()
+    raise ValueError(init)
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 dtype: torch.dtype = torch.bfloat16, device=None) -> Tree:
-    """Random parameters of a dense config on `device` (the card unless the
+    """Random parameters of a config on `device` (the card unless the
     caller names another), every leaf in `dtype` but `F32_LEAVES`.  The
     generator's device need not be `device`: draws move across."""
     dev = resolve_device(device)
@@ -159,11 +256,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             if isinstance(v, dict):
                 out[k] = build(v, path)
                 continue
-            shape, scale = v
+            shape, init = v
             dt = leaf_dtype(path, dtype)
-            out[k] = (torch.zeros(shape, dtype=dt, device=dev)
-                      if scale is None
-                      else _draw(generator, shape, scale, dt, dev))
+            out[k] = (_draw(generator, shape, init, dt, dev)
+                      if isinstance(init, float)
+                      else _fill(shape, init, dt, dev))
         return out
 
     return build(param_layout(cfg))

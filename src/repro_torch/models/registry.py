@@ -3,8 +3,9 @@ src/repro/models/registry.py).
 
 The reference's `mesh`, `rules`, `remat`, `model_axis_size` and
 `cast_before_scan` shape its XLA program and sharding; the port has no
-counterpart for them and takes none.  `device` is the port's own: the card
-unless the caller names another.
+counterpart for them and takes none.  It pads the experts as the
+reference's `build_model` does with no mesh (`params.MODEL_AXIS`).
+`device` is the port's own: the card unless the caller names another.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ MODEL_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 def build_model(cfg: ModelConfig, compute_dtype=None, kv_chunk: int = 2048,
                 kv_int8: bool = False, device=None) -> Model:
-    """The dense family's `Model`; the other families, and the int8 KV
-    cache, raise `NotImplementedError` naming their ROADMAP item."""
+    """The `Model` of a dense, MoE, SSM or hybrid config; the enc-dec and
+    VLM families, and the int8 KV cache, raise `NotImplementedError`
+    naming their ROADMAP item."""
     if kv_int8:
         raise NotImplementedError(
             "kv_int8=True: the int8 KV cache is not ported yet (ROADMAP "

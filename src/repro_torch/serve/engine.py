@@ -2,12 +2,15 @@
 
 Counterpart of src/repro/serve/engine.py.  With a model config (`cfg`)
 the engine builds the model (`models.registry.build_model`, bf16 by
-default), zero bf16 KV caches of `batch_size` x `max_seq`
-(`models.io.init_caches`) and decodes every slot through
+default), zero caches of `batch_size` x `max_seq` (`models.io.init_caches`:
+bf16 K/V, f32 SSD states) and decodes every slot through
 `Model.decode_step`, which writes the caches in place; a request ends when
 its length reaches ``max_seq - 1`` (`full`), so no cache write falls past
-the end.  Only the dense family is ported: the others raise
-`NotImplementedError` naming their ROADMAP item.  With ``cfg=None`` the
+the end.  The dense, MoE, SSM and hybrid families are ported; enc-dec and
+VLM raise `NotImplementedError` naming their ROADMAP item.  As in the
+reference, admitting a request resets its slot's length and token but not
+its SSD state: a recycled slot starts from its predecessor's recurrent
+state (ROADMAP queue 3).  With ``cfg=None`` the
 engine runs the model-free synthetic decode (the next token is a pure
 function of the current one and never the EOS id, so completion timing is
 driven by `max_new_tokens`): the engine loop the SLO and overload

@@ -1,6 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
-fused window on the card against the same window on the CPU, and the dense
-model path (a reduced model card against CPU, one full-width decode).
+fused window on the card against the same window on the CPU, and the model
+path (reduced dense, MoE, SSM and hybrid models card against CPU, one
+full-width decode, one full-width MoE layer).
 
 Every test here is marked `gpu` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -973,7 +974,8 @@ def _model_run(cfg, tree_np, tok_np, dtype, device, steps):
             torch.full((B,), t, dtype=torch.int32, device=device))
         logits.append(lg)
     return ([x.cpu() for x in logits],
-            [x.cpu() for x in (pc["k"], pc["v"], caches["k"], caches["v"])])
+            [x.cpu() for x in [pc[k] for k in sorted(pc)]
+             + [caches[k] for k in sorted(caches)]])
 
 
 @pytest.mark.gpu
@@ -1062,3 +1064,111 @@ def test_full_width_decode_on_the_card_equals_recompute():
     for g, w in ((got, want), (caches["k"], pre["k"]),
                  (caches["v"], pre["v"])):
         assert _bf16_ulps(g, w) <= FULL_WIDTH_ULPS
+
+
+# ---------------------------------------------------------------------------
+# the MoE, SSM and hybrid families
+# ---------------------------------------------------------------------------
+
+# bf16 bounds of these families, card against CPU (the port against
+# itself, as chip_smoke.py K3): 2 ulps, jamba's 8.
+FAMILY_BF16_ULPS = {"granite-moe-1b-a400m": 2, "mamba2-780m": 2,
+                    "jamba-1.5-large-398b": 8}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(FAMILY_BF16_ULPS))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_reduced_family_on_the_card_equals_the_cpu(arch, dtype, monkeypatch):
+    """`chip_smoke.py` K3 in small form: one numpy tree of a reduced MoE,
+    SSM or hybrid model on the card and on the CPU, f32 with TF32 off then
+    bf16: `train_logits`, `prefill` (every cache) and 8 decode steps within
+    the CPU tests' tolerances (64 tokens for the SSD families: two
+    chunks); and the engine (EOS off, the same draws) with the same
+    admissions, completion steps and health, and in f32 the same tokens."""
+    import functools
+
+    import repro_torch.models.io as MIO
+    import repro_torch.models.registry as MR
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.params import init_params
+
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced_config(arch)
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    tree_np = params_to_numpy(init_params(
+        cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+        device="cpu"))
+    S = 64 if cfg.ssm else 16
+    tok = np.random.default_rng(4).integers(0, cfg.vocab, (2, S)).astype(
+        np.int32)
+    (lg, st), (lc, sc) = (_model_run(cfg, tree_np, tok, td, d, 8)
+                          for d in (dev, "cpu"))
+    for what, got, want in (("logits", lg, lc), ("cache", st, sc)):
+        for g, c in zip(got, want):
+            if dtype == "f32":
+                assert float((g - c).abs().max()) <= MODEL_F32[what]
+            else:
+                assert _bf16_ulps(g, c) <= FAMILY_BF16_ULPS[arch]
+    if dtype == "f32":
+        monkeypatch.setattr(MR, "build_model", functools.partial(
+            MR.build_model, compute_dtype=torch.float32))
+        monkeypatch.setattr(MIO, "init_caches", functools.partial(
+            MIO.init_caches, dtype=torch.float32))
+    draws = _serve_draws(200)
+    engines = []
+    for d in (dev, "cpu"):
+        eng = ServeEngine(cfg, params_from_numpy(tree_np, cfg, device=d,
+                                                 dtype=td),
+                          EngineConfig(batch_size=4, max_seq=32,
+                                       eos_token=-1),
+                          device=d, draws=draws,
+                          tree=engines[0].scheduler.pq.tree if engines
+                          else None)
+        eng.run(traces.bursty_serve_workload(steps=16, seed=1),
+                max_steps=100_000)
+        engines.append(eng)
+    g, c = engines
+    assert g.admit_step == c.admit_step and g.done_step == c.done_step
+    assert g.health() == c.health() and len(g.done_step) > 0
+    if dtype == "f32":
+        assert g.outputs == c.outputs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [8, 128])
+def test_full_width_moe_layer_on_the_card_equals_the_cpu(T):
+    """`chip_smoke.py` K1's layer check in small form: one granite-moe-3b
+    `moe_block` at full width (d 1536, 40 experts, top 8, F 512) in f32
+    with TF32 off, from one numpy draw, at a decode step's 8 tokens (cap 2)
+    and at 128 (cap 32): the same routing and kept
+    assignments, the output within 2e-5 and aux within 1e-6 relative (the
+    CPU tests' tolerances)."""
+    from repro_torch.models.layers import moe as TM
+
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(5)
+    D, E, F = 1536, 40, 512
+    arrays = [rng.standard_normal((1, T, D)).astype(np.float32),
+              (0.02 * rng.standard_normal((D, E))).astype(np.float32)]
+    arrays += [(0.02 * rng.standard_normal(s)).astype(np.float32)
+               for s in ((E, D, F), (E, D, F), (E, F, D))]
+    dims = TM.MoEDims(40, 40, 8, 1.25)
+    runs = []
+    for d in (dev, "cpu"):
+        x, rw, wg, wu, wd = (torch.as_tensor(a, device=d) for a in arrays)
+        out, aux = TM.moe_block(x, rw, wg, wu, wd, dims)
+        _, _, sel = TM.route(x.reshape(T, D), rw, dims)
+        keep = [k for _, _, k in TM.dispatch(sel, dims,
+                                             TM.capacity(T, dims))]
+        runs.append((out.cpu(), float(aux), sel.cpu(),
+                     torch.stack(keep).cpu()))
+    (og, ag, sg, kg), (oc, ac, scpu, kc) = runs
+    assert TM.capacity(T, dims) == {8: 2, 128: 32}[T]
+    assert torch.equal(sg, scpu) and torch.equal(kg, kc)
+    assert int((~kc).sum()) > 0
+    torch.testing.assert_close(og, oc, rtol=2e-5, atol=2e-5)
+    assert abs(ag - ac) <= 1e-6 * abs(ac)

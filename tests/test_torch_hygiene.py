@@ -114,8 +114,8 @@ def test_serving_runs_on_the_card_by_default():
 
 def test_model_path_runs_on_the_card_by_default():
     """`build_model`, `init_params`, `init_caches`, `params_from_numpy` and
-    `ServeEngine` with a model go to the card unless the caller names
-    another device, and raise without one; `python -m
+    `ServeEngine` with a dense, MoE or SSM model go to the card unless the
+    caller names another device, and raise without one; `python -m
     repro_torch.launch.serve` with no --device refuses to run without a
     card rather than fall back to the CPU."""
     from repro_torch.configs.registry import reduced_config
@@ -125,35 +125,43 @@ def test_model_path_runs_on_the_card_by_default():
     from repro_torch.models.registry import build_model
     from repro_torch.serve import EngineConfig, ServeEngine
 
-    cfg = reduced_config("llama3.2-3b")
     small = EngineConfig(batch_size=2, max_seq=8)
-    tree = params_to_numpy(init_params(cfg, device="cpu"))
-    argv = ["-m", "repro_torch.launch.serve", "--arch", "llama3.2-3b",
-            "--reduced", "--requests", "6"]
-    if torch.cuda.is_available():
-        assert build_model(cfg).device.type == "cuda"
-        assert init_caches(cfg, 2, 8)["k"].device.type == "cuda"
-        params = params_from_numpy(tree, cfg)
-        assert params["embed"].device.type == "cuda"
-        eng = ServeEngine(cfg, params, small)
-        assert eng.caches["k"].device.type == "cuda"
-        out = _python(argv, timeout=300)
+    # a dense, a MoE and an SSM config; the launcher runs the first two
+    for arch, launch in (("llama3.2-3b", True),
+                         ("granite-moe-1b-a400m", True),
+                         ("mamba2-780m", False)):
+        cfg = reduced_config(arch)
+        tree = params_to_numpy(init_params(cfg, device="cpu"))
+        cache = "ssm_h" if cfg.family == "ssm" else "k"
+        argv = ["-m", "repro_torch.launch.serve", "--arch", arch,
+                "--reduced", "--requests", "6"]
+        if torch.cuda.is_available():
+            assert build_model(cfg).device.type == "cuda"
+            assert init_caches(cfg, 2, 8)[cache].device.type == "cuda"
+            params = params_from_numpy(tree, cfg)
+            assert params["embed"].device.type == "cuda"
+            eng = ServeEngine(cfg, params, small)
+            assert eng.caches[cache].device.type == "cuda"
+            if launch:
+                out = _python(argv, timeout=300)
+                assert out.returncode == 0, out.stderr
+                assert "6/6 requests" in out.stdout
+            continue
+        for make in (lambda: build_model(cfg), lambda: init_params(cfg),
+                     lambda: init_caches(cfg, 2, 8),
+                     lambda: params_from_numpy(tree, cfg),
+                     lambda: ServeEngine(cfg, None, small)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                make()
+        if not launch:
+            continue
+        out = _python(argv)
+        assert out.returncode != 0
+        assert "no CUDA device" in out.stderr
+        assert "requests" not in out.stdout
+        out = _python(argv + ["--device", "cpu"])
         assert out.returncode == 0, out.stderr
         assert "6/6 requests" in out.stdout
-        return
-    for make in (lambda: build_model(cfg), lambda: init_params(cfg),
-                 lambda: init_caches(cfg, 2, 8),
-                 lambda: params_from_numpy(tree, cfg),
-                 lambda: ServeEngine(cfg, None, small)):
-        with pytest.raises(RuntimeError, match="no CUDA device"):
-            make()
-    out = _python(argv)
-    assert out.returncode != 0
-    assert "no CUDA device" in out.stderr
-    assert "requests" not in out.stdout
-    out = _python(argv + ["--device", "cpu"])
-    assert out.returncode == 0, out.stderr
-    assert "6/6 requests" in out.stdout
 
 
 def test_worker_and_supervisor_run_on_the_card_by_default(tmp_path):

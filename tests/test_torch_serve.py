@@ -4,10 +4,10 @@ package's, on the CPU: `Request.priority_key`, the scheduler's `tick` and
 with the reference's per-tick draws injected, the guard tier's rollback and
 retry, the engine's slot-availability forecast, the synthetic-decode
 `ServeEngine` (run summary, `health()`, latency records, the metrics
-registry) and `ServeEngine` with a reduced llama3.2-3b model (admissions,
-completion steps and `health()` in bf16 with EOS off; the tokens too in
-f32, both engines built in f32 by patching their `build_model` and
-`init_caches`).  The port's own contracts are pinned beside: `tick_window`
+registry) and `ServeEngine` with a reduced llama3.2-3b,
+granite-moe-1b-a400m or mamba2-780m model (admissions, completion steps
+and `health()` in bf16 with EOS off; the tokens too in f32, both engines
+built in f32 by patching their `build_model` and `init_caches`).  The port's own contracts are pinned beside: `tick_window`
 equals K `tick` calls, a checkpoint survives two restores, and no step
 writes into the carry it was given.  Every compared value is an integer
 (or a float the reference computes from integers the same way): the
@@ -438,11 +438,12 @@ def test_engine_run_matches_jax(tree, K):
 
 
 def test_engine_refuses_what_is_not_ported(tree, tmp_path):
-    """A dense model config builds (its bf16 caches of batch_size x
-    max_seq); a config of a family not ported yet raises, naming its
-    ROADMAP item, instead of running something else, and so does the int8
-    KV cache; the durable engine (`durable_dir`), ported since, runs and
-    reports its store in `health()`."""
+    """A dense, MoE, SSM or hybrid model config builds (its bf16 K/V caches
+    of batch_size x max_seq, its f32 SSD states); a config of a family not
+    ported yet raises, naming its ROADMAP item, instead of running
+    something else, and so does the int8 KV cache; the durable engine
+    (`durable_dir`), ported since, runs and reports its store in
+    `health()`."""
     cfg = reduced_config(MODEL_ARCH)
     eng = ServeEngine(cfg, init_params(cfg, device="cpu"),
                       EngineConfig(batch_size=2, max_seq=8), device="cpu",
@@ -450,11 +451,22 @@ def test_engine_refuses_what_is_not_ported(tree, tmp_path):
     assert eng.caches["k"].shape == (cfg.n_layers, 2, 8, cfg.n_kv_heads,
                                      cfg.resolved_head_dim)
     assert eng.caches["v"].dtype == torch.bfloat16
-    for arch, item in (("granite-moe-1b-a400m", "8.1"),
-                       ("granite-moe-3b-a800m", "8.1"),
-                       ("mamba2-780m", "8.2"),
-                       ("jamba-1.5-large-398b", "8.2"),
-                       ("whisper-base", "8.3"),
+    for arch, kinds in (("granite-moe-1b-a400m", ("k", "v")),
+                        ("granite-moe-3b-a800m", ("k", "v")),
+                        ("mamba2-780m", ("ssm_h", "ssm_conv")),
+                        ("jamba-1.5-large-398b",
+                         ("k", "v", "ssm_h", "ssm_conv"))):
+        fcfg = reduced_config(arch)
+        eng = ServeEngine(fcfg, init_params(fcfg, device="cpu"),
+                          EngineConfig(batch_size=2, max_seq=8),
+                          device="cpu", tree=tree)
+        assert tuple(eng.caches) == kinds, arch
+        for k in kinds:
+            assert eng.caches[k].dtype == (torch.float32 if "ssm" in k
+                                           else torch.bfloat16), (arch, k)
+        assert eng.run([[Request(uid=0, prompt_len=4, max_new_tokens=3)]],
+                       max_steps=20)["completed"] == 1, arch
+    for arch, item in (("whisper-base", "8.3"),
                        ("llama-3.2-vision-11b", "8.3")):
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP queue 1 item {item}"):
@@ -502,12 +514,17 @@ def test_engine_windows_drain_and_draws_run_out(tree):
 # ---------------------------------------------------------------------------
 
 
+def _j_tree(arch):
+    """The reference's reduced parameters of `arch`
+    (`init_params(jax.random.key(0))`), as numpy."""
+    jm = JMR.build_model(j_reduced_config(arch), remat=False)
+    return jax.tree.map(np.asarray, jm.init(jax.random.key(0))[0])
+
+
 @pytest.fixture(scope="module")
 def model_tree():
-    """The reference's reduced llama3.2-3b parameters
-    (`init_params(jax.random.key(0))`), as numpy."""
-    jm = JMR.build_model(j_reduced_config(MODEL_ARCH), remat=False)
-    return jax.tree.map(np.asarray, jm.init(jax.random.key(0))[0])
+    """The reference's reduced llama3.2-3b parameters, as numpy."""
+    return _j_tree(MODEL_ARCH)
 
 
 def _e2e_workload(cls, new_tokens=4):
@@ -517,7 +534,8 @@ def _e2e_workload(cls, new_tokens=4):
              for j in range(3)] for i in range(4)]
 
 
-def _model_runs(tree, model_tree, mp, dtype, new_tokens=4, **ecfg):
+def _model_runs(tree, model_tree, mp, dtype, new_tokens=4, arch=MODEL_ARCH,
+                **ecfg):
     """The reference engine and the port's on the same weights and
     workload; in f32 both build their model and caches in f32 (their
     `build_model` and `init_caches`, imported at call time, patched)."""
@@ -531,19 +549,20 @@ def _model_runs(tree, model_tree, mp, dtype, new_tokens=4, **ecfg):
         mp.setattr(TIO, "init_caches", functools.partial(
             TIO.init_caches, dtype=torch.float32))
     td = torch.float32 if dtype == "f32" else torch.bfloat16
-    ref = JServeEngine(j_reduced_config(MODEL_ARCH),
+    ref = JServeEngine(j_reduced_config(arch),
                        jax.tree.map(jnp.asarray, model_tree),
                        JEngineConfig(**ecfg))
     want = ref.run(_e2e_workload(JSM.Request, new_tokens), max_steps=300)
     K = ecfg.get("sched_window", 1)
-    cfg = reduced_config(MODEL_ARCH)
+    cfg = reduced_config(arch)
     eng = ServeEngine(cfg, params_from_numpy(model_tree, cfg, device="cpu",
                                              dtype=td),
                       EngineConfig(**ecfg), device="cpu", tree=tree,
                       draws=draws_from_keys(scheduler_keys(
                           0, want["steps"] + K), 16, 64, H))
     got = eng.run(_e2e_workload(Request, new_tokens), max_steps=300)
-    assert eng.caches["k"].dtype == td
+    for name, c in eng.caches.items():
+        assert c.dtype == (torch.float32 if "ssm" in name else td), name
     return ref, want, eng, got
 
 
@@ -594,3 +613,26 @@ def test_model_request_runs_into_full_like_jax(tree, model_tree):
     assert all(len(v) == 7 for v in eng.outputs.values())
     assert int(eng.lengths.max()) == 7
     assert bool(eng.caches["k"][:, :, 7].any())
+
+
+@pytest.mark.parametrize("arch,dtype,K", [
+    ("granite-moe-1b-a400m", "bf16", 1), ("granite-moe-1b-a400m", "f32", 4),
+    ("mamba2-780m", "bf16", 1), ("mamba2-780m", "f32", 1)])
+def test_family_engine_matches_jax(tree, arch, dtype, K):
+    """`ServeEngine` with a reduced MoE or SSM model against the reference
+    engine on the same weights and draws: every request completes, with
+    the same admissions, completion steps, health and carry; in bf16 with
+    EOS off, and in f32 with the tokens equal too.  Neither engine resets
+    a recycled slot's SSM state (ROADMAP queue 3): the port matches the
+    reference there as well."""
+    ecfg = dict(batch_size=4, max_seq=32, sched_window=K)
+    if dtype == "bf16":
+        ecfg["eos_token"] = -1
+    with pytest.MonkeyPatch.context() as mp:
+        ref, want, eng, got = _model_runs(tree, _j_tree(arch), mp, dtype,
+                                          arch=arch, **ecfg)
+    assert got["completed"] == 12
+    assert all(len(v) > 0 for v in eng.outputs.values())
+    _same_serving(ref, want, eng, got)
+    if dtype == "f32":
+        assert eng.outputs == ref.outputs
