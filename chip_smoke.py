@@ -130,10 +130,10 @@ non-zero before its last line):
               completion steps (and tokens, in f32);
   14. path K  the MoE and SSM families at full width and the hybrid reduced
               (`models/layers/moe.py`, `models/layers/ssm.py`): K1
-              granite-moe-3b-a800m (32 layers, d 1536, 40 experts padded
-              to 48, top 8) in bf16 on the card: the build, one layer's
+              granite-moe-3b-a800m (32 layers, d 1536, 40 experts, top 8)
+              in bf16 on the card: the build, one layer's
               `moe_block` on the card against the CPU (f32, TF32 off) at 8
-              tokens (cap 1) and 128 (cap 26) with the same routing and
+              tokens (cap 2) and 128 (cap 32) with the same routing and
               kept assignments and the dropped share, and J3's engine runs
               and readings (the decode step's bound beside the 40 real
               experts' bound, its device µs by layer: attention decode, MoE
@@ -146,7 +146,22 @@ non-zero before its last line):
               weights and the f32 states read and written); K3 reduced
               granite-moe-1b-a400m, mamba2-780m and jamba-1.5-large-398b
               as J4;
-  15. the total time; then the kernels JSON line, the card line, and the
+  15. path L  the enc-dec and VLM families at full width (`Model`'s
+              encoder, cross-attention, decoder and VLM stacks): L1
+              whisper-base (6 encoder and 6 decoder layers, d 512, vocab
+              51865), L2 llama-3.2-vision-11b (40 layers, 8 gated
+              cross-attention layers, d 4096, 32 heads over 8 K/V heads,
+              vocab 128256), bf16, norms, biases and gates redrawn nonzero
+              from the seed: each the build, `prefill` of 4 prompts of 32
+              tokens with 1500 encoder frames or 1024 image tokens against
+              32 teacher-forced `decode_step`s from the prefill's `xk`/`xv`
+              and `train_logits` within `J2_ULPS`, zeros for the context
+              moving the logits by more than that, and J3's engine runs
+              and readings (bound: the weights a step reads, the valid K/V
+              prefix and `xk`/`xv`; device µs by range: self-attention
+              decode, cross-attention, MLP, unembedding); L4 the reduced
+              models as J4, with a context;
+  16. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -160,8 +175,9 @@ path I a distributed step or a delegation round does, and its launches are
 those of this process's distributed calls and delegations plus those of
 I2's eight rank processes, each counted from 0 just before its steps; on
 path J an engine tick does, and its launches are those of J3's engine
-runs (the model itself launches no hand kernel); on path K likewise, K1's
-and K2's engine runs each counted from 0 just before it.
+runs (the model itself launches no hand kernel); on paths K and L
+likewise, K1's and K2's (L1's and L2's) engine runs each counted from 0
+just before it.
 `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/, path H's stores to build/chip_smoke/durable/.  The
@@ -574,6 +590,7 @@ PATH_KERNELS = {
           "multiq_select"),
     "J": ("windowed_merge", "topk_smallest", "elim_sort"),
     "K": ("windowed_merge", "topk_smallest", "elim_sort"),
+    "L": ("windowed_merge", "topk_smallest", "elim_sort"),
 }
 PREFILL_BATCH = 4096
 # Kernel launches inside `run_window` calls only (prefills excluded), per
@@ -3080,16 +3097,17 @@ def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda",
             raise AssertionError(f"{tag} K={K}: empty mode trace")
         tokens = sum(map(len, eng.outputs.values()))
         wall = meas["wall_s"]
-        line = (f"[{tag}] K={K}: {summary['completed']}/"
-                f"{c['requests']} requests in {steps} ticks, {tokens} "
-                f"tokens, {c['batch_size']} slots, max_seq {c['max_seq']}: "
-                f"{wall * 1e3 / steps:.3f} ms/tick, {wall * 1e6 / tokens:.1f} "
-                f"us/token, {tokens / wall:.1f} tokens/s, host syncs "
-                f"{meas['syncs'] / steps:.2f}/tick, "
-                f"{_modes_line(summary['mode_trace'])}; identities held "
-                f"after {meas['checks']} windows | launches {launches} "
-                f"({ {k: round(n / steps, 3) for k, n in launches.items()} } "
-                f"a tick)")
+        log(f"[{tag}] K={K}: {summary['completed']}/{c['requests']} "
+            f"requests in {steps} ticks, {tokens} tokens, {c['batch_size']} "
+            f"slots, max_seq {c['max_seq']}: {wall * 1e3 / steps:.3f} "
+            f"ms/tick, {wall * 1e6 / tokens:.1f} us/token, "
+            f"{tokens / wall:.1f} tokens/s, host syncs "
+            f"{meas['syncs'] / steps:.2f}/tick, "
+            f"{_modes_line(summary['mode_trace'])}; identities held after "
+            f"{meas['checks']} windows")
+        log(f"[{tag}] K={K} launches {launches} "
+            f"({ {k: round(n / steps, 3) for k, n in launches.items()} } a "
+            f"tick)")
         if dev.type == "cuda":
             t0 = time.perf_counter()
             host_ms, dev_ms, bound_ms, w_ms, by = decode_step_times(
@@ -3107,16 +3125,17 @@ def path_j3(tree, cfg, model, params, nbytes, c=PATH_J, device="cuda",
                                unprofiled)
             layers = "; ".join(f"{k} {us:.1f} us in {n} calls"
                                for k, (n, us) in sorted(by.items()))
-            line += (f" | decode step: {host_ms:.3f} ms host-issued (CUDA "
-                     f"events), {dev_ms:.3f} ms on the device (a replayed "
-                     f"CUDA graph), bound {bound_ms:.3f} ms (weights "
-                     f"{w_ms:.3f} ms + {step['state']}, at 3.35 TB/s)"
-                     + (step["note"](model, params, eng)
-                        if step["note"] else "")
-                     + f"; device by layer: {layers} | ticks {lo}-{hi}: "
-                     + share_line(*share, per=f"{hi - lo} ticks",
-                                  of="the same ticks unprofiled"))
-        log(line + " | took " + ", ".join(
+            log(f"[{tag}] K={K} decode step: {host_ms:.3f} ms host-issued "
+                f"(CUDA events), {dev_ms:.3f} ms on the device (a replayed "
+                f"CUDA graph), bound {bound_ms:.3f} ms (weights {w_ms:.3f} "
+                f"ms + {step['state']}, at 3.35 TB/s)"
+                + (step["note"](model, params, eng) if step["note"] else ""))
+            log(f"[{tag}] K={K} device by range, one step "
+                f"({sum(n for n, _ in by.values())} calls): {layers}")
+            log(f"[{tag}] K={K} ticks {lo}-{hi}: "
+                + share_line(*share, per=f"{hi - lo} ticks",
+                             of="the same ticks unprofiled"))
+        log(f"[{tag}] K={K} took " + ", ".join(
             f"{t:.1f}s {what}" for t, what in zip(
                 took, ("run", "decode step readings", "profiled run"))))
         del eng
@@ -3145,12 +3164,14 @@ def f32_models():
 
 
 def path_j4(tree, c=PATH_J, device="cuda", tag="13 path J4"):
-    """J4 (and K3): the reduced models `c["small"]` with one numpy tree on
-    the card and on the CPU (`params_from_numpy`), f32 with TF32 off, then
-    bf16: `train_logits`, `prefill` (logits, every cache) and
+    """J4 (and K3, L4): the reduced models `c["small"]` with one numpy tree
+    on the card and on the CPU (`params_from_numpy`), f32 with TF32 off,
+    then bf16: `train_logits`, `prefill` (logits, every cache) and
     teacher-forced decode steps within the CPU tests' tolerances (an SSD
-    family's prompt two of its chunks long; bf16 bounds from
-    `c["small_ulps"]`, else `J4_BF16_ULPS`); the launcher's workload
+    family's prompt two of its chunks long; an enc-dec or VLM model with
+    its norms and gates redrawn, a context, and decode from the prefill's
+    `xk`/`xv`; bf16 bounds from `c["small_ulps"]`, else `J4_BF16_ULPS`);
+    the launcher's workload
     through `ServeEngine` with EOS off and the same draws: the same
     admissions, completion steps, health and mode trace on both, and in
     f32 the same tokens."""
@@ -3175,9 +3196,14 @@ def path_j4(tree, c=PATH_J, device="cuda", tag="13 path J4"):
         cfg = reduced_config(arch)
         L = 2 * cfg.ssm.chunk if cfg.ssm else c["small_len"]
         ulps = c.get("small_ulps", {}).get(arch, J4_BF16_ULPS)
-        tree_np = params_to_numpy(init_params(
-            cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
-            device=cpu))
+        weights = init_params(cfg, torch.Generator().manual_seed(3),
+                              dtype=torch.float32, device=cpu)
+        key, n_ctx = context_of(cfg, c.get("small_frames", 0))
+        if key:  # nonzero norms and gates, and a context (L4)
+            redraw_nonzero(weights, torch.Generator().manual_seed(5))
+            ctx_np = model_context(cfg, n_ctx, 2, torch.Generator(
+            ).manual_seed(6), cpu).numpy()
+        tree_np = params_to_numpy(weights)
         tok_np = np.random.default_rng(4).integers(
             0, cfg.vocab, (2, L)).astype(np.int32)
         for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
@@ -3186,9 +3212,14 @@ def path_j4(tree, c=PATH_J, device="cuda", tag="13 path J4"):
                 model = build_model(cfg, compute_dtype=dt, device=d)
                 p = params_from_numpy(tree_np, cfg, device=d, dtype=dt)
                 tok = torch.as_tensor(tok_np, device=d)
-                train, _ = model.train_logits(p, {"tokens": tok})
-                pre, pc = model.prefill(p, {"tokens": tok})
+                batch = {"tokens": tok}
+                if key:
+                    batch[key] = torch.as_tensor(ctx_np, device=d)
+                train, _ = model.train_logits(p, batch)
+                pre, pc = model.prefill(p, batch)
                 caches = init_caches(cfg, 2, L, dtype=dt, device=d)
+                if key:  # decode attends to the prefill's context K/V
+                    caches.update(xk=pc["xk"].clone(), xv=pc["xv"].clone())
                 logits = [train, pre]
                 for t in range(T):
                     lg, caches = model.decode_step(
@@ -3313,9 +3344,10 @@ K2_LABELS = {"_embed": "K embedding", "_ssm_decode": "K SSD decode",
              "_unembed": "K unembedding"}
 
 
-def path_k_build(arch, c=PATH_K, device="cuda"):
-    """K1/K2's build: `arch` at full width on the card from a seeded
-    generator.  Returns (config, model, parameters, weight bytes)."""
+def path_k_build(arch, c=PATH_K, device="cuda", tag="14 path K"):
+    """K1/K2's build (and L1/L2's): `arch` at full width on the card from a
+    seeded generator.  Returns (config, model, parameters, weight
+    bytes)."""
     import torch
 
     from repro_torch.configs.registry import get_config, reduced_config
@@ -3348,13 +3380,20 @@ def path_k_build(arch, c=PATH_K, device="cuda"):
     peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
             else None)
     dims = (f"{len(flat)} leaves, "
+            + (f"{cfg.n_encoder_layers} encoder layers, "
+               if cfg.n_encoder_layers else "")
+            + (f"{cfg.n_layers // cfg.cross_attn_every} gated "
+               f"cross-attention layers, " if cfg.cross_attn_every else "")
+            + (f"{cfg.n_heads} heads ({cfg.n_kv_heads} KV) of "
+               f"{cfg.resolved_head_dim}, d_ff {cfg.d_ff}, "
+               if cfg.family in ("encdec", "vlm") else "")
             + (f"{model.moe_dims.n_experts_pad} experts, top "
                f"{cfg.moe.top_k}, "
                if cfg.moe else "")
             + (f"d_inner {cfg.ssm.d_inner}, {model.ssm_dims.n_heads} heads "
                f"of {cfg.ssm.head_dim}, state {cfg.ssm.d_state}, "
                if cfg.ssm else ""))
-    log(f"[14 path K] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+    log(f"[{tag}] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{dims}vocab {cfg.vocab}: {n:,} parameters, {nbytes:,} bytes, "
         f"init {init_s:.3f}s on the {dev.type}, peak allocated "
         + (f"{peak:,} bytes" if peak is not None else "not measured"))
@@ -3543,6 +3582,221 @@ def path_k(tree, c=PATH_K, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# path L: the enc-dec and VLM families
+# ---------------------------------------------------------------------------
+
+# L1: whisper-base at full width (6 encoder and 6 decoder layers, d 512, 8
+# heads of 64, d_ff 2048, vocab 51865 padded to 51968, tied head); L2:
+# llama-3.2-vision-11b (40 layers, a gated cross-attention after every 5th,
+# d 4096, 32 query heads over 8 K/V heads of 128, d_ff 14336, vocab
+# 128256, untied head); bf16, from a seeded generator on the card, their
+# norm scales, biases and gates redrawn nonzero (`redraw_nonzero`).  Each:
+# the build; `prefill` of 4 prompts of 32 tokens with a context (whisper's
+# 1500 encoder frames, `n_audio_ctx` of arXiv:2212.04356's released
+# dimensions, its conv stem a stub as in the reference; the VLM's 1024
+# image tokens) against 32 teacher-forced `decode_step`s from empty
+# self-attention caches and the prefill's `xk`/`xv`, and `train_logits` at
+# the last position, within `J2_ULPS`, zeros in place of the context
+# moving the logits by more than that; J3's engine runs and readings.  L4:
+# the reduced models as J4, with a context.
+PATH_L = dict(encdec="whisper-base", vlm="llama-3.2-vision-11b",
+              reduced=False, seed=0,
+              expect={"whisper-base": 70_737_920,
+                      "llama-3.2-vision-11b": 10_110_734_344},
+              enc_frames=1500, prompts=4, prompt_len=32, requests=24,
+              burst=6, batch_size=8, max_seq=512, windows=(1, 4),
+              profile=(4, 8), reps=5,
+              small=("whisper-base", "llama-3.2-vision-11b"), small_len=16,
+              small_frames=24, small_steps=8, small_slots=4,
+              small_max_seq=64, small_requests=12,
+              # the VLM's bf16 bound, tests/test_torch_encdec_vlm.py's
+              small_ulps={"llama-3.2-vision-11b": 3})
+L_LABELS = {"_embed": "L embedding", "_attn_decode": "L self-attention decode",
+            "_cross_attn": "L cross-attention", "_ffn": "L MLP",
+            "_unembed": "L unembedding"}
+
+
+def redraw_nonzero(params, gen):
+    """Norm scales and biases (N(0, 0.1^2)) and the VLM's gates (N(0, 1))
+    redrawn from `gen` in place, as the CPU tests redraw theirs
+    (tests/test_torch_models.py `_redrawn_tree`): zero at init, they zero
+    whisper's logits (each layer norm outputs its zero bias) and cut the
+    VLM's image off (tanh(0)).  Returns `params`."""
+    import torch
+
+    from repro_torch.models.params import leaves
+
+    for path, w in leaves(params):
+        name = path.split("/")[-1]
+        if name.startswith(("b", "norm", "final_norm")) or name == "gate":
+            z = torch.randn(w.shape, generator=gen, device=gen.device)
+            w.copy_(z * (1.0 if name == "gate" else 0.1))
+    return params
+
+
+def context_of(cfg, enc_frames: int):
+    """(batch key, frames or image tokens) of a model's context, or (None,
+    0) for a family without one."""
+    if cfg.family == "encdec":
+        return "enc_embeds", enc_frames
+    if cfg.family == "vlm":
+        return "image_embeds", cfg.n_image_tokens
+    return None, 0
+
+
+def model_context(cfg, n, P, gen, device):
+    """P contexts of n frames (or image tokens), f32: one draw shared by a
+    prompt's frames plus one a frame, as audio frames and image patches
+    share what they show; frames drawn independently would average out
+    under random-weight attention, and the cross path would barely move
+    the logits."""
+    import torch
+
+    D = cfg.d_model
+    return (torch.randn((P, 1, D), generator=gen, device=device)
+            + torch.randn((P, n, D), generator=gen, device=device))
+
+
+def decode_weight_bytes(cfg, params, batch: int) -> int:
+    """The weights one decode step of `batch` tokens reads, in bytes: all
+    but the encoder's and the cross-attention's K/V projections (the
+    context's K/V are cached), and of an untied embedding its `batch`
+    rows."""
+    from repro_torch.models.params import leaves
+
+    total = 0
+    for path, w in leaves(params):
+        top, name = path.split("/")[0], path.split("/")[-1]
+        if top.startswith("enc_") or (top in ("dec_cross", "cross")
+                                      and name in ("wk", "wv", "bk", "bv")):
+            continue
+        if path == "embed" and not cfg.tie_embeddings:
+            total += batch * w.shape[1] * w.element_size()
+            continue
+        total += w.numel() * w.element_size()
+    return total
+
+
+def cross_bytes(eng):
+    """The cross-attention K/V a decode step reads (every frame), bytes."""
+    return sum(eng.caches[k].numel() * eng.caches[k].element_size()
+               for k in ("xk", "xv"))
+
+
+def _logit_note(model, params, eng):
+    """The largest |logit| of one decode step on the engine's state."""
+    logits, _ = model.decode_step(params, eng.caches, eng.tokens,
+                                  eng.lengths)
+    return (f"; largest |logit| of a step "
+            f"{float(logits.float().abs().max()):.4f}")
+
+
+L_STEP = dict(state_bytes=lambda eng: kv_prefix_bytes(eng) + cross_bytes(eng),
+              state="the valid K/V prefix and xk/xv",
+              ranges=lambda model: model_ranges(model, L_LABELS),
+              note=_logit_note)
+
+
+def path_l_identity(cfg, model, params, c=PATH_L, device="cuda",
+                    tag="15 path L"):
+    """L1/L2's check: `prefill` of P prompts of L tokens with the context
+    against L teacher-forced `decode_step`s from empty self-attention
+    caches and the prefill's `xk`/`xv` (the last logits, both K/V caches),
+    and `train_logits` at the last position, within `J2_ULPS`; the
+    context replaced by zeros moves the prefill's logits by more than
+    `J2_ULPS`."""
+    import torch
+
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import padded_vocab
+
+    dev = torch.device(device)
+    P, L = c["prompts"], c["prompt_len"]
+    gen = torch.Generator(device=dev).manual_seed(c["seed"] + 1)
+    tok = torch.randint(0, cfg.vocab, (P, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    key, n = context_of(cfg, c["enc_frames"])
+    ctx = model_context(cfg, n, P, gen, dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    want, pre = model.prefill(params, {"tokens": tok, key: ctx})
+    _sync(dev)
+    pre_s = time.perf_counter() - t0
+    train, _ = model.train_logits(params, {"tokens": tok, key: ctx})
+    zero, _ = model.prefill(params, {"tokens": tok,
+                                     key: torch.zeros_like(ctx)})
+    caches = init_caches(cfg, P, L, device=dev)
+    caches.update(xk=pre["xk"], xv=pre["xv"])
+    _sync(dev)
+    t0 = time.perf_counter()
+    for t in range(L):
+        got, caches = model.decode_step(
+            params, caches, tok[:, t:t + 1],
+            torch.full((P,), t, dtype=torch.int32, device=dev))
+    _sync(dev)
+    dec_s = time.perf_counter() - t0
+    errs = {"decode logits": _bf16_ulps(got, want),
+            "train_logits[:, -1]": _bf16_ulps(train[:, -1], want),
+            "k cache": _bf16_ulps(caches["k"], pre["k"]),
+            "v cache": _bf16_ulps(caches["v"], pre["v"])}
+    live = _bf16_ulps(zero, want)
+    if tuple(got.shape) != (P, padded_vocab(cfg)) or not bool(
+            torch.isfinite(got).all()):
+        raise AssertionError(f"{tag}: logits {tuple(got.shape)} not finite "
+                             f"or not (P, V_pad)")
+    log(f"[{tag}] {P} prompts of {L} tokens, {key} {tuple(ctx.shape)}: "
+        f"prefill {pre_s * 1e3:.1f} ms, {L} teacher-forced decode steps "
+        f"{dec_s * 1e3 / L:.2f} ms a step (host-issued); bf16 ulps of the "
+        f"largest prefill value (at most {J2_ULPS}): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in errs.items())
+        + f"; zeros for {key} move it {live:.2f} ulps (above {J2_ULPS}); "
+        f"largest |logit| {float(want.float().abs().max()):.4f}")
+    bad = {k: v for k, v in errs.items() if v > J2_ULPS}
+    if bad:
+        raise AssertionError(f"{tag}: {bad} bf16 ulps above {J2_ULPS}")
+    if not live > J2_ULPS:
+        raise AssertionError(f"{tag}: the context moves the logits "
+                             f"{live:.2f} ulps, not above {J2_ULPS}")
+
+
+def path_l(tree, c=PATH_L, device="cuda"):
+    """Phase 15: L1-L4.  The path's launch counts are those of L1's and
+    L2's unprofiled engine runs, each counted from 0 just before it (the
+    models launch no hand kernel; the scheduler's kernels run in the
+    engine's ticks).  Returns (launches, launches inside the runs,
+    ticks)."""
+    import torch
+
+    from repro_torch.kernels import ops as KO
+
+    dev = torch.device(device)
+    in_runs, ticks, took = {}, 0, []
+    for arch, tag in ((c["encdec"], "L1"), (c["vlm"], "L2")):
+        t0 = time.perf_counter()
+        cfg, model, params, nbytes = path_k_build(arch, c, device,
+                                                  tag=f"15 path {tag}")
+        redraw_nonzero(params, torch.Generator(device=dev).manual_seed(
+            c["seed"] + 2))
+        path_l_identity(cfg, model, params, c, device, tag=f"15 path {tag}")
+        counts_reset()
+        ticks += path_j3(tree, cfg, model, params,
+                         decode_weight_bytes(cfg, params, c["batch_size"]),
+                         c, device, step=dict(L_STEP, tag=tag),
+                         tag=f"15 path {tag}")
+        for k, n in counts_read("L")[1].items():
+            in_runs[k] = in_runs.get(k, 0) + n
+        del model, params
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        took.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    path_j4(tree, c, device, tag="15 path L4")
+    log(f"[15 path L] L1 {took[0]:.1f}s, L2 {took[1]:.1f}s, L4 "
+        f"{time.perf_counter() - t0:.1f}s")
+    return {k: in_runs.get(k, 0) for k in KO.LAUNCHES}, in_runs, ticks
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3647,12 +3901,18 @@ def main() -> int:
     log(f"[14 path K] {time.perf_counter() - t0:.1f}s | launches "
         f"{path_k_counts[0]} (inside its engine runs {path_k_counts[1]}, "
         f"{path_k_counts[2]} ticks)")
-    log(f"[15 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_l_counts = path_l(tree)
+    log(f"[15 path L] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_l_counts[0]} (inside its engine runs {path_l_counts[1]}, "
+        f"{path_l_counts[2]} ticks)")
+    log(f"[16 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
         "G": path_g_counts, "H": path_h_counts, "I": path_i_counts,
-        "J": path_j_counts, "K": path_k_counts}, phase2, floor)))
+        "J": path_j_counts, "K": path_k_counts, "L": path_l_counts},
+        phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,10 +12,9 @@ reproduce):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-3b \\
       --reduced --device cpu
 
-Any dense, MoE, SSM or hybrid arch serves (`--arch granite-moe-3b-a800m`,
-`--arch mamba2-780m`; jamba-1.5-large-398b fits one card only with
-`--reduced`); whisper-base and llama-3.2-vision-11b raise, naming their
-ROADMAP item.
+Any arch serves (`--arch granite-moe-3b-a800m`, `--arch mamba2-780m`,
+`--arch whisper-base`, `--arch llama-3.2-vision-11b`; jamba-1.5-large-398b
+fits one card only with `--reduced`).
 """
 
 import argparse

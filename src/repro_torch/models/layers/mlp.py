@@ -1,13 +1,15 @@
 """Gated MLPs (SwiGLU / GeGLU) and the plain GELU MLP (whisper).
 
 Counterpart of src/repro/models/layers/mlp.py; GELU is the tanh
-approximation, as the reference's ``approximate=True``.
+approximation, as the reference's ``approximate=True``.  Both activations
+are written op by op, rounded as XLA rounds them (`silu`, `gelu`).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
-import torch.nn.functional as F
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -15,6 +17,18 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     rounded to the input dtype (bit-equal in bf16, where `F.silu` rounds
     once).  Every silu of the port is this one."""
     return x * (1 / (1 + torch.exp(-x)))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu(approximate=True)` as XLA rounds it: ``x * (0.5 * (1 +
+    tanh(c * (x + k * x^3))))``, each op rounded to the input dtype and the
+    constants ``c = sqrt(2 / pi)`` and ``k = 0.044715`` rounded to it first
+    (the reference's weakly typed scalars; PyTorch would multiply by the
+    f32 value).  Bit-equal in bf16, where `F.gelu` rounds once.  Every
+    gelu of the port is this one."""
+    c = float(torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype))
+    k = float(torch.tensor(0.044715, dtype=x.dtype))
+    return x * (0.5 * (1 + torch.tanh(c * (x + k * (x * x * x)))))
 
 
 def gated_mlp(
@@ -29,7 +43,7 @@ def gated_mlp(
     if act == "silu":
         h = silu(g) * u
     elif act == "gelu":  # GeGLU (gemma)
-        h = F.gelu(g, approximate="tanh") * u
+        h = gelu(g) * u
     else:
         raise ValueError(act)
     return h @ w_down
@@ -42,5 +56,5 @@ def dense_mlp(
     w_out: torch.Tensor,  # (F, D)
     b_out: torch.Tensor,  # (D,)
 ) -> torch.Tensor:
-    h = F.gelu(x @ w_in + b_in, approximate="tanh")
+    h = gelu(x @ w_in + b_in)
     return h @ w_out + b_out

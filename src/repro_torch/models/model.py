@@ -1,38 +1,47 @@
-"""The model: full-sequence forward, prefill and decode for the dense, MoE,
-SSM and hybrid families.
+"""The model: full-sequence forward, prefill and decode for every family.
 
 Counterpart of src/repro/models/model.py (`Model._norm`, `_embed`,
-`_unembed`, `_attn_full`, `_attn_decode`, `_ffn`, `_moe_ffn`,
-`_ssm_layer`, the dense, moe and ssm branches of `_stack_full`,
-`_hybrid_stack_full`, `train_logits`, `prefill`, the dense, moe and ssm
-branches of `decode_step` and `_hybrid_decode`), with the reference's
-signatures and return values.  The parameters are passed in, as the
-reference's are: a nested dict of layer-stacked tensors
+`_unembed`, `_attn_full`, `_attn_decode`, `_cross_attn`, `_context_kv`,
+`_ffn`, `_moe_ffn`, `_ssm_layer`, `_stack_full`, `_vlm_stack_full`,
+`_hybrid_stack_full`, `_encoder`, `_decoder_full`, `train_logits`,
+`prefill`, `decode_step`, `_hybrid_decode` and `_vlm_decode`), with the
+reference's signatures and return values.  The parameters are passed in,
+as the reference's are: a nested dict of layer-stacked tensors
 (`params.init_params`, `convert.params_from_numpy`).  The layer loop is a
 Python ``for`` over the stacked leaves (``w[l]`` is a view), in place of
 `lax.scan`; the hybrid family's loops over superblocks and, inside one,
 over the period's positions: attention at `hybrid_attn_pos` and SSD
 elsewhere, each followed by the MoE FFN on odd positions and the dense
-one on even ones.
+one on even ones.  The VLM's loops over groups of `cross_attn_every`
+layers, the gated cross-attention after the self-attention of each
+group's last layer.
+
+The context of the enc-dec and VLM families (the encoder's output of
+`enc_embeds`, or `image_embeds`) is an argument of the stacks, where the
+reference passes the image through a model attribute; cross-attention
+reads it unroped and unmasked (`noncausal_dims`, all-zero positions), as
+does the encoder's self-attention.  Decode attends to the caches' `xk` and
+`xv`, which it leaves as they are.
 
 Each weight is cast to the compute dtype where the reference casts it
 (every layer, every step); stored in that dtype already (`init_params`'
 default) the cast is a no-op, which gives the reference's numbers without
-an f32 copy on the card.  The one leaf the reference reads uncast, the
-ssm family's decode norm, is stored in f32 (`params.F32_LEAVES`).
+an f32 copy on the card.  The leaves the reference reads uncast, the ssm
+family's decode norm and the VLM's gate, are stored in f32
+(`params.F32_LEAVES`).
 `decode_step` writes the new K/V rows and the SSD states (`ssm_h`,
 `ssm_conv`, f32) into the caches in place (the reference donates them)
 and returns the same dict; the caller keeps every length below the
 cache's depth (the engine ends a request on `full`), since an index past
 it raises on the CPU and is a device-side assert on the card.  The MoE
 layer's aux loss is summed over the layers by `train_logits` and dropped
-by decode, as in the reference.  The enc-dec and VLM families raise
-`NotImplementedError` naming their ROADMAP item (`params.NOT_PORTED`); so
-does the int8 KV cache (`registry.build_model`).
+by decode, as in the reference.  The int8 KV cache raises
+`NotImplementedError` naming its ROADMAP item (`registry.build_model`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
@@ -45,8 +54,7 @@ from repro_torch.models.layers.moe import MoEDims, moe_block
 from repro_torch.models.layers.norm import layer_norm, rms_norm
 from repro_torch.models.layers.ssm import (SSMState, ssd_decode_step,
                                            ssd_forward)
-from repro_torch.models.params import (init_params, padded_experts,
-                                       require_ported, ssm_dims)
+from repro_torch.models.params import init_params, padded_experts, ssm_dims
 from repro_torch.utils.hostsync import resolve_device
 
 Tree = Dict[str, Any]
@@ -70,7 +78,6 @@ class Model(torch.nn.Module):
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
                  kv_chunk: int = 2048, device=None):
         super().__init__()
-        require_ported(cfg)
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.kv_chunk = kv_chunk
@@ -81,6 +88,9 @@ class Model(torch.nn.Module):
             head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta,
         )
+        # the encoder's self-attention and every cross-attention
+        self.noncausal_dims = dataclasses.replace(self.attn_dims,
+                                                  causal=False)
         if cfg.ssm:
             self.ssm_dims = ssm_dims(cfg)
         if cfg.moe:
@@ -111,13 +121,16 @@ class Model(torch.nn.Module):
 
     # -- sublayers -----------------------------------------------------------
 
-    def _attn_full(self, x, p, q_pos, kv_pos, collect_cache: bool):
-        """Self-attention over a full sequence.  Returns (y, (k, v)|None)."""
+    def _attn_full(self, x, p, q_pos, kv_pos, collect_cache: bool,
+                   dims: Optional[AttnDims] = None):
+        """Self-attention over a full sequence (causal unless `dims` says
+        otherwise).  Returns (y, (k, v)|None)."""
+        dims = dims or self.attn_dims
         h = self._norm(x, p["norm"], p.get("norm_b"))
         bias = (p["bq"], p["bk"], p["bv"]) if "bq" in p else None
-        q, k, v = project_qkv(h, p["wq"], p["wk"], p["wv"], self.attn_dims,
-                              q_pos, kv_pos, bias)
-        out = attend_chunked(q, k, v, self.attn_dims, q_pos, kv_pos,
+        q, k, v = project_qkv(h, p["wq"], p["wk"], p["wv"], dims, q_pos,
+                              kv_pos, bias)
+        out = attend_chunked(q, k, v, dims, q_pos, kv_pos,
                              kv_chunk=self.kv_chunk)
         B, S = out.shape[:2]
         y = out.reshape(B, S, -1) @ p["wo"]
@@ -140,6 +153,38 @@ class Model(torch.nn.Module):
         y = out.reshape(B, 1, -1) @ p["wo"]
         return x + y
 
+    def _cross_attn(self, x, p, ctx_k, ctx_v, gate=None):
+        """Cross-attention to precomputed context K/V (no RoPE, non-causal);
+        `gate` (stored f32) scales the output by tanh(gate), rounded to the
+        output's dtype first."""
+        dims = self.noncausal_dims
+        h = self._norm(x, p["norm"], p.get("norm_b"))
+        B, S, _ = h.shape
+        q = (h @ p["wq"]).reshape(B, S, dims.n_heads, dims.head_dim)
+        if "bq" in p:
+            q = q + p["bq"].reshape(1, 1, dims.n_heads, dims.head_dim)
+        qpos = torch.zeros((B, S), dtype=torch.int32, device=x.device)
+        kpos = torch.zeros((B, ctx_k.shape[1]), dtype=torch.int32,
+                           device=x.device)
+        out = attend_chunked(q, ctx_k, ctx_v, dims, qpos, kpos,
+                             kv_chunk=self.kv_chunk)
+        y = out.reshape(B, S, -1) @ p["wo"]
+        if gate is not None:
+            y = torch.tanh(gate).to(y.dtype) * y
+        return x + y
+
+    def _context_kv(self, p, ctx):
+        """Project a context (image or encoder states) into cross K/V."""
+        dims = self.attn_dims
+        B, S, _ = ctx.shape
+        shape = (B, S, dims.n_kv_heads, dims.head_dim)
+        k = (ctx @ p["wk"]).reshape(shape)
+        v = (ctx @ p["wv"]).reshape(shape)
+        if "bk" in p:
+            k = k + p["bk"].reshape(1, 1, dims.n_kv_heads, dims.head_dim)
+            v = v + p["bv"].reshape(1, 1, dims.n_kv_heads, dims.head_dim)
+        return k, v
+
     def _ffn(self, x, p):
         h = self._norm(x, p["norm"], p.get("norm_b"))
         if self.cfg.act == "gelu_mlp":
@@ -160,15 +205,24 @@ class Model(torch.nn.Module):
         y, h_last, conv_tail = ssd_forward(h, p, self.ssm_dims, h0)
         return x + y, h_last, conv_tail
 
-    def _stack_full(self, params, x, positions, collect_cache: bool):
+    def _stack_full(self, params, x, positions, collect_cache: bool,
+                    ctx=None):
         """Returns (x, caches, aux): caches the family's per-layer state
-        stacked over the layers ({"k", "v"}, {"ssm_h", "ssm_conv"} or all
-        four; decode feeds on them), or None; aux the MoE layers' summed
-        load-balancing loss (0 without MoE)."""
+        stacked over the layers ({"k", "v"}, {"ssm_h", "ssm_conv"}, both,
+        or {"k", "v", "xk", "xv"} with the context's K/V; decode feeds on
+        them), or None; aux the MoE layers' summed load-balancing loss (0
+        without MoE).  `ctx`: the enc-dec family's encoder output or the
+        VLM's image embeddings (`_context`)."""
         cfg = self.cfg
         if cfg.family == "hybrid":
             return self._hybrid_stack_full(params, x, positions,
                                            collect_cache)
+        if cfg.family == "encdec":
+            return self._decoder_full(params, x, positions, ctx,
+                                      collect_cache)
+        if cfg.family == "vlm":
+            return self._vlm_stack_full(params, x, positions, ctx,
+                                        collect_cache)
         aux = torch.zeros((), device=x.device)
         if cfg.family == "ssm":
             hs, convs = [], []
@@ -196,6 +250,73 @@ class Model(torch.nn.Module):
         caches = ({"k": torch.stack(ks), "v": torch.stack(vs)}
                   if collect_cache else None)
         return x, caches, aux
+
+    def _vlm_stack_full(self, params, x, positions, img, collect_cache):
+        """Groups of `cross_attn_every` layers (layer ``g * k + i``), the
+        gated cross-attention to `img` after the self-attention of each
+        group's last layer.  Caches: k/v (ng, k, B, S, Hkv, hd), xk/xv
+        (ng, B, n_image_tokens, Hkv, hd)."""
+        k = self.cfg.cross_attn_every
+        ng = self.cfg.n_layers // k
+        ks, vs, xks, xvs = [], [], [], []
+        for g in range(ng):
+            gk, gv = [], []
+            for i in range(k):
+                x, kv = self._attn_full(
+                    x, self._layer(params["attn"], g * k + i), positions,
+                    positions, collect_cache)
+                if i == k - 1:
+                    cp = self._layer(params["cross"], g)
+                    ck, cv = self._context_kv(cp, img)
+                    x = self._cross_attn(x, cp, ck, cv,
+                                         gate=params["cross"]["gate"][g])
+                x = self._ffn(x, self._layer(params["mlp"], g * k + i))
+                if collect_cache:
+                    gk.append(kv[0])
+                    gv.append(kv[1])
+            if collect_cache:
+                ks.append(torch.stack(gk))
+                vs.append(torch.stack(gv))
+                xks.append(ck)
+                xvs.append(cv)
+        caches = ({"k": torch.stack(ks), "v": torch.stack(vs),
+                   "xk": torch.stack(xks), "xv": torch.stack(xvs)}
+                  if collect_cache else None)
+        return x, caches, torch.zeros((), device=x.device)
+
+    def _encoder(self, params, enc_x):
+        """Whisper's encoder: a non-causal self-attention and MLP stack."""
+        B, S, _ = enc_x.shape
+        positions = torch.arange(S, dtype=torch.int32,
+                                 device=enc_x.device).expand(B, S)
+        x = enc_x
+        for i in range(self.cfg.n_encoder_layers):
+            x, _ = self._attn_full(x, self._layer(params["enc_attn"], i),
+                                   positions, positions, False,
+                                   dims=self.noncausal_dims)
+            x = self._ffn(x, self._layer(params["enc_mlp"], i))
+        return x
+
+    def _decoder_full(self, params, x, positions, enc_out, collect_cache):
+        """Each decoder layer: self-attention, cross-attention to
+        `enc_out`, MLP.  Caches: k/v and xk/xv (L, B, S|S_enc, Hkv, hd)."""
+        ks, vs, xks, xvs = [], [], [], []
+        for i in range(self.cfg.n_layers):
+            x, kv = self._attn_full(x, self._layer(params["dec_attn"], i),
+                                    positions, positions, collect_cache)
+            cp = self._layer(params["dec_cross"], i)
+            ck, cv = self._context_kv(cp, enc_out)
+            x = self._cross_attn(x, cp, ck, cv)
+            x = self._ffn(x, self._layer(params["dec_mlp"], i))
+            if collect_cache:
+                ks.append(kv[0])
+                vs.append(kv[1])
+                xks.append(ck)
+                xvs.append(cv)
+        caches = ({"k": torch.stack(ks), "v": torch.stack(vs),
+                   "xk": torch.stack(xks), "xv": torch.stack(xvs)}
+                  if collect_cache else None)
+        return x, caches, torch.zeros((), device=x.device)
 
     def _hybrid_ffn(self, x, params, sb: int, pos: int, slot: dict):
         """The FFN after position `pos` of superblock `sb`: MoE on odd
@@ -266,22 +387,34 @@ class Model(torch.nn.Module):
         return torch.arange(S, dtype=torch.int32,
                             device=tokens.device).expand(B, S)
 
+    def _context(self, params, batch: Tree):
+        """The stacks' context: the encoder's output of `enc_embeds`
+        (enc-dec), `image_embeds` (VLM), in the compute dtype; else None."""
+        fam = self.cfg.family
+        if fam == "encdec":
+            return self._encoder(
+                params, batch["enc_embeds"].to(self.compute_dtype))
+        if fam == "vlm":
+            return batch["image_embeds"].to(self.compute_dtype)
+        return None
+
     def train_logits(self, params, batch: Tree):
-        """batch: tokens (B, S).  Returns (logits (B, S, V_pad), aux): the
+        """batch: tokens (B, S) [+ enc_embeds (B, S_enc, D) | image_embeds
+        (B, n_image_tokens, D)].  Returns (logits (B, S, V_pad), aux): the
         forward pass only (training is ROADMAP queue 1 item 9)."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         x, _, aux = self._stack_full(params, x, self._positions(tokens),
-                                     collect_cache=False)
+                                     False, self._context(params, batch))
         return self._unembed(params, x), aux
 
     def prefill(self, params, batch: Tree):
-        """Full-context forward collecting decode caches.  Returns
-        (last_logits (B, V_pad), caches)."""
+        """Full-context forward collecting decode caches (batch as
+        `train_logits`').  Returns (last_logits (B, V_pad), caches)."""
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         x, cache, _ = self._stack_full(params, x, self._positions(tokens),
-                                       collect_cache=True)
+                                       True, self._context(params, batch))
         logits = self._unembed(params, x[:, -1:, :])[:, 0, :]
         return logits, cache
 
@@ -312,7 +445,7 @@ class Model(torch.nn.Module):
                                      caches["ssm_conv"][i])
             return self._unembed(params, x)[:, 0, :], caches
         B = tokens.shape[0]
-        S_max = caches["k"].shape[2]
+        S_max = caches["k"].shape[-3]  # (..., B, S_max, Hkv, hd)
         pos = torch.arange(S_max, dtype=torch.int32,
                            device=lengths.device).expand(B, S_max)
         idx = _DecodeIndex(
@@ -321,6 +454,18 @@ class Model(torch.nn.Module):
             valid=pos < (lengths[:, None] + 1))
         if cfg.family == "hybrid":
             x = self._hybrid_decode(params, caches, x, idx)
+            return self._unembed(params, x)[:, 0, :], caches
+        if cfg.family == "vlm":
+            x = self._vlm_decode(params, caches, x, idx)
+            return self._unembed(params, x)[:, 0, :], caches
+        if cfg.family == "encdec":
+            for i in range(cfg.n_layers):
+                x = self._attn_decode(x, self._layer(params["dec_attn"], i),
+                                      caches["k"][i], caches["v"][i], idx)
+                x = self._cross_attn(x, self._layer(params["dec_cross"], i),
+                                     caches["xk"][i].to(x.dtype),
+                                     caches["xv"][i].to(x.dtype))
+                x = self._ffn(x, self._layer(params["dec_mlp"], i))
             return self._unembed(params, x)[:, 0, :], caches
         for i in range(cfg.n_layers):
             x = self._attn_decode(x, self._layer(params["attn"], i),
@@ -349,4 +494,20 @@ class Model(torch.nn.Module):
                                          caches["ssm_conv"][sb, si])
                     slot["ssm"] += 1
                 x, _ = self._hybrid_ffn(x, params, sb, pos, slot)
+        return x
+
+    def _vlm_decode(self, params, caches, x, idx: _DecodeIndex):
+        k = self.cfg.cross_attn_every
+        for g in range(self.cfg.n_layers // k):
+            for i in range(k):
+                x = self._attn_decode(
+                    x, self._layer(params["attn"], g * k + i),
+                    caches["k"][g, i], caches["v"][g, i], idx)
+                if i == k - 1:
+                    x = self._cross_attn(
+                        x, self._layer(params["cross"], g),
+                        caches["xk"][g].to(x.dtype),
+                        caches["xv"][g].to(x.dtype),
+                        gate=params["cross"]["gate"][g])
+                x = self._ffn(x, self._layer(params["mlp"], g * k + i))
         return x

@@ -1,16 +1,20 @@
-"""Parameter initialization for the dense, MoE, SSM and hybrid families.
+"""Parameter initialization for every family.
 
 Counterpart of src/repro/models/params.py: nested dicts with layer-stacked
 leaves (a leading layer axis; the hybrid family's SSD, MoE and MLP leaves
 two, superblock then position), the reference's key paths, shapes and
-scales (0.02; ``wo``, ``w_down``, ``e_down`` and ``out_proj`` over
-sqrt(2L); ``embed`` and ``head`` over sqrt(D); ``conv_w`` 0.1; norms and
-biases zero; the SSD's ``A_log`` log(1..H) and ``D`` one).  The port has
-no mesh, so the experts are padded as the reference's mesh-free
-`build_model` pads them (`MODEL_AXIS`): the port's tree takes that
-model's `init` tree leaf for leaf.  The draws come from an explicit `torch.Generator`, whose
-stream is not `jax.random`'s: a test that needs the reference's numbers
-converts its tree (`convert.params_from_numpy`).  The leaves are stored in
+scales (0.02; ``wo``, ``w_down``, ``w_out``, ``e_down`` and ``out_proj``
+over sqrt(2L); ``embed`` and ``head`` over sqrt(D); ``conv_w`` 0.1; norms,
+biases and the VLM's cross-attention ``gate`` zero; the SSD's ``A_log``
+log(1..H) and ``D`` one).  The enc-dec family stacks its encoder
+(``enc_attn``, ``enc_mlp``) and decoder (``dec_attn``, ``dec_cross``,
+``dec_mlp``) layers; the VLM's ``cross`` holds one attention layer for
+every ``cross_attn_every`` layers.  The port has no mesh, so the experts
+are padded as the reference's mesh-free `build_model` pads them
+(`MODEL_AXIS`): the port's tree takes that model's `init` tree leaf for
+leaf.  The draws come from an explicit `torch.Generator`, whose stream is
+not `jax.random`'s: a test that needs the reference's numbers converts its
+tree (`convert.params_from_numpy`).  The leaves are stored in
 the compute dtype, so no f32 copy stays on the card; a stacked leaf is
 drawn in f32 and cast one matrix at a time, which keeps the peak near the
 stored total.  The spec tree of `PartitionSpec`s waits for the sharding
@@ -35,17 +39,11 @@ VOCAB_PAD = 128  # pad vocab to multiples of 128
 # reference's `build_model` takes 1 (src/repro/models/registry.py).
 MODEL_AXIS = 1
 
-# The families whose modules are still to port, with their ROADMAP items.
-NOT_PORTED = {
-    "encdec": "ROADMAP queue 1 item 8.3 (enc-dec and VLM)",
-    "vlm": "ROADMAP queue 1 item 8.3 (enc-dec and VLM)",
-}
-PORTED = ("dense", "moe", "ssm", "hybrid")
-
 # Leaves the reference reads without casting to the compute dtype: kept in
-# f32 (model.py's `_unembed` passes `final_norm_b` as stored, and the ssm
-# family's `decode_step` normalizes with the stored `ssm/norm`).
-F32_LEAVES = ("final_norm_b", "ssm/norm")
+# f32 (model.py's `_unembed` passes `final_norm_b` as stored, the ssm
+# family's `decode_step` normalizes with the stored `ssm/norm`, and the
+# VLM's cross-attention takes tanh of the stored `cross/gate`).
+F32_LEAVES = ("final_norm_b", "ssm/norm", "cross/gate")
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -55,16 +53,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
 def padded_experts(cfg: ModelConfig) -> int:
     assert cfg.moe is not None
     return pad_to_multiple(cfg.moe.n_experts, MODEL_AXIS)
-
-
-def require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family is not ported yet "
-            f"({NOT_PORTED[cfg.family]}); the {', '.join(PORTED)} families "
-            f"are")
-    if cfg.family not in PORTED:
-        raise ValueError(cfg.family)
 
 
 # (shape, init): init a float is N(0, init^2), None a zero leaf, "ones" a
@@ -160,7 +148,6 @@ def _restack(layout: Dict[str, Leaf], nsb: int, per: int) -> Dict[str, Leaf]:
 def param_layout(cfg: ModelConfig) -> Tree:
     """The parameter tree as (shape, init) leaves, in the reference's
     key order (which is also its draw order)."""
-    require_ported(cfg)
     V = padded_vocab(cfg)
     D = cfg.d_model
     L = cfg.n_layers
@@ -184,7 +171,19 @@ def param_layout(cfg: ModelConfig) -> Tree:
             layout["mlp"] = _mlp_layout(cfg, L)
     elif fam == "ssm":
         layout["ssm"] = _ssm_layout(cfg, L)
-    else:  # hybrid: period-long superblocks
+    elif fam == "encdec":
+        Le = cfg.n_encoder_layers
+        layout["enc_attn"] = _attn_layout(cfg, Le)
+        layout["enc_mlp"] = _mlp_layout(cfg, Le)
+        layout["dec_attn"] = _attn_layout(cfg, L)
+        layout["dec_cross"] = _attn_layout(cfg, L)
+        layout["dec_mlp"] = _mlp_layout(cfg, L)
+    elif fam == "vlm":
+        nx = L // cfg.cross_attn_every
+        layout["attn"] = _attn_layout(cfg, L)
+        layout["mlp"] = _mlp_layout(cfg, L)
+        layout["cross"] = _attn_layout(cfg, nx) | {"gate": ((nx,), None)}
+    elif fam == "hybrid":  # period-long superblocks
         period = cfg.hybrid_period
         nsb = L // period
         n_mamba = period - 1
@@ -198,6 +197,8 @@ def param_layout(cfg: ModelConfig) -> Tree:
             nsb, n_moe_sb)
         layout["mlp"] = _restack(_mlp_layout(cfg, nsb * n_dense_sb), nsb,
                                  n_dense_sb)
+    else:
+        raise ValueError(fam)
     return layout
 
 

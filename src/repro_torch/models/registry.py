@@ -20,9 +20,8 @@ MODEL_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 
 def build_model(cfg: ModelConfig, compute_dtype=None, kv_chunk: int = 2048,
                 kv_int8: bool = False, device=None) -> Model:
-    """The `Model` of a dense, MoE, SSM or hybrid config; the enc-dec and
-    VLM families, and the int8 KV cache, raise `NotImplementedError`
-    naming their ROADMAP item."""
+    """The `Model` of a config of any family; the int8 KV cache raises
+    `NotImplementedError` naming its ROADMAP item."""
     if kv_int8:
         raise NotImplementedError(
             "kv_int8=True: the int8 KV cache is not ported yet (ROADMAP "

@@ -6,8 +6,10 @@ default), zero caches of `batch_size` x `max_seq` (`models.io.init_caches`:
 bf16 K/V, f32 SSD states) and decodes every slot through
 `Model.decode_step`, which writes the caches in place; a request ends when
 its length reaches ``max_seq - 1`` (`full`), so no cache write falls past
-the end.  The dense, MoE, SSM and hybrid families are ported; enc-dec and
-VLM raise `NotImplementedError` naming their ROADMAP item.  As in the
+the end.  Every family goes through `init_caches` and `decode_step` alone;
+as in the
+reference, the enc-dec and VLM caches' cross-attention K/V (`xk`, `xv`)
+stay zero (no request carries audio or an image).  As in the
 reference, admitting a request resets its slot's length and token but not
 its SSD state: a recycled slot starts from its predecessor's recurrent
 state (ROADMAP queue 3).  With ``cfg=None`` the

@@ -1,7 +1,7 @@
 """The port on the card: each CUDA kernel against its plain version, the
 fused window on the card against the same window on the CPU, and the model
-path (reduced dense, MoE, SSM and hybrid models card against CPU, one
-full-width decode, one full-width MoE layer).
+path (reduced models of every family card against CPU, full-width llama3.2-3b
+and whisper-base decodes, one full-width MoE layer).
 
 Every test here is marked `gpu` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -953,9 +953,11 @@ def _bf16_ulps(got, want):
     return float((got - want).abs().max()) / ulp
 
 
-def _model_run(cfg, tree_np, tok_np, dtype, device, steps):
+def _model_run(cfg, tree_np, tok_np, dtype, device, steps, ctx_np=None):
     """train_logits, prefill and teacher-forced decode steps from empty
-    caches, on `device`; logits and caches on the CPU."""
+    caches, on `device`; logits and caches on the CPU.  `ctx_np`: the
+    enc-dec or VLM family's context, whose cross K/V (`xk`, `xv`) the
+    decode caches take from the prefill."""
     from repro_torch.convert import params_from_numpy
     from repro_torch.models.io import init_caches
     from repro_torch.models.registry import build_model
@@ -963,10 +965,16 @@ def _model_run(cfg, tree_np, tok_np, dtype, device, steps):
     model = build_model(cfg, compute_dtype=dtype, device=device)
     p = params_from_numpy(tree_np, cfg, device=device, dtype=dtype)
     tok = torch.as_tensor(tok_np, device=device)
-    train, _ = model.train_logits(p, {"tokens": tok})
-    pre, pc = model.prefill(p, {"tokens": tok})
+    batch = {"tokens": tok}
+    if ctx_np is not None:
+        key = "enc_embeds" if cfg.family == "encdec" else "image_embeds"
+        batch[key] = torch.as_tensor(ctx_np, device=device)
+    train, _ = model.train_logits(p, batch)
+    pre, pc = model.prefill(p, batch)
     B, S = tok.shape
     caches = init_caches(cfg, B, S, dtype=dtype, device=device)
+    if ctx_np is not None:
+        caches.update(xk=pc["xk"].clone(), xv=pc["xv"].clone())
     logits = [train, pre]
     for t in range(steps):
         lg, caches = model.decode_step(
@@ -1172,3 +1180,130 @@ def test_full_width_moe_layer_on_the_card_equals_the_cpu(T):
     assert int((~kc).sum()) > 0
     torch.testing.assert_close(og, oc, rtol=2e-5, atol=2e-5)
     assert abs(ag - ac) <= 1e-6 * abs(ac)
+
+
+# ---------------------------------------------------------------------------
+# the enc-dec and VLM families
+# ---------------------------------------------------------------------------
+
+# bf16 bounds card against CPU: the CPU tests'
+# (tests/test_torch_encdec_vlm.py).
+ENCDEC_VLM_BF16_ULPS = {"whisper-base": 2, "llama-3.2-vision-11b": 3}
+
+
+def _redraw_nonzero(params, gen):
+    """Norm scales and biases (scale 0.1) and the VLM's gates (scale 1)
+    redrawn from `gen` in place, as the CPU tests redraw theirs: zero at
+    init, they would zero whisper's logits and cut the VLM's image off."""
+    from repro_torch.models.params import leaves
+
+    for path, w in leaves(params):
+        name = path.split("/")[-1]
+        if name.startswith(("b", "norm", "final_norm")) or name == "gate":
+            z = torch.randn(w.shape, generator=gen, device=gen.device)
+            w.copy_(z * (1.0 if name == "gate" else 0.1))
+    return params
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", sorted(ENCDEC_VLM_BF16_ULPS))
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_reduced_encdec_vlm_on_the_card_equals_the_cpu(arch, dtype,
+                                                       monkeypatch):
+    """`chip_smoke.py` L4 in small form: one numpy tree of reduced
+    whisper-base or llama-3.2-vision-11b (norms, biases and gates redrawn
+    nonzero) on the card and on the CPU, f32 with TF32 off then bf16:
+    `train_logits`, `prefill` (all four caches) and 8 decode steps from
+    the prefill's `xk`/`xv` within the CPU tests' tolerances; and the
+    engine (EOS off, the same draws) with the same admissions, completion
+    steps and health, and in f32 the same tokens."""
+    import functools
+
+    import repro_torch.models.io as MIO
+    import repro_torch.models.registry as MR
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.params import init_params
+
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced_config(arch)
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    rng = np.random.default_rng(4)
+    tree_np = params_to_numpy(_redraw_nonzero(init_params(
+        cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+        device="cpu"), torch.Generator().manual_seed(5)))
+    tok = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    n_ctx = 24 if cfg.family == "encdec" else cfg.n_image_tokens
+    ctx = rng.standard_normal((2, n_ctx, cfg.d_model)).astype(np.float32)
+    (lg, kv), (lc, kc) = (_model_run(cfg, tree_np, tok, td, d, 8, ctx)
+                          for d in (dev, "cpu"))
+    for what, got, want in (("logits", lg, lc), ("cache", kv, kc)):
+        for g, c in zip(got, want):
+            if dtype == "f32":
+                assert float((g - c).abs().max()) <= MODEL_F32[what]
+            else:
+                assert _bf16_ulps(g, c) <= ENCDEC_VLM_BF16_ULPS[arch]
+    if dtype == "f32":
+        monkeypatch.setattr(MR, "build_model", functools.partial(
+            MR.build_model, compute_dtype=torch.float32))
+        monkeypatch.setattr(MIO, "init_caches", functools.partial(
+            MIO.init_caches, dtype=torch.float32))
+    draws = _serve_draws(200)
+    engines = []
+    for d in (dev, "cpu"):
+        eng = ServeEngine(cfg, params_from_numpy(tree_np, cfg, device=d,
+                                                 dtype=td),
+                          EngineConfig(batch_size=4, max_seq=32,
+                                       eos_token=-1),
+                          device=d, draws=draws,
+                          tree=engines[0].scheduler.pq.tree if engines
+                          else None)
+        eng.run(traces.bursty_serve_workload(steps=16, seed=1),
+                max_steps=100_000)
+        assert not eng.caches["xk"].any() and not eng.caches["xv"].any()
+        engines.append(eng)
+    g, c = engines
+    assert g.admit_step == c.admit_step and g.done_step == c.done_step
+    assert g.health() == c.health() and len(g.done_step) > 0
+    if dtype == "f32":
+        assert g.outputs == c.outputs
+
+
+@pytest.mark.gpu
+def test_full_width_whisper_decode_on_the_card_equals_recompute():
+    """`chip_smoke.py` L1 in small form: whisper-base at full width in bf16
+    on the card (norms and biases redrawn nonzero), one prompt of 8 tokens
+    over whisper's 1500 encoder frames: `prefill` against 8
+    teacher-forced `decode_step`s from its `xk`/`xv` (the last logits and
+    both self-attention caches) within `FULL_WIDTH_ULPS`; zero frames move
+    the logits by more than that."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.registry import build_model
+
+    dev = _card()
+    cfg = get_config("whisper-base")
+    model = build_model(cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = _redraw_nonzero(model.init(gen), gen)
+    tok = torch.randint(0, cfg.vocab, (1, 8), device=dev, dtype=torch.int32,
+                        generator=gen)
+    # one draw shared by every frame plus one a frame (chip_smoke.py's
+    # `model_context`): iid frames average out under random attention
+    enc = (torch.randn((1, 1, cfg.d_model), device=dev, generator=gen)
+           + torch.randn((1, 1500, cfg.d_model), device=dev, generator=gen))
+    want, pre = model.prefill(params, {"tokens": tok, "enc_embeds": enc})
+    zero, _ = model.prefill(params, {"tokens": tok,
+                                     "enc_embeds": torch.zeros_like(enc)})
+    caches = dict(init_caches(cfg, 1, 8, device=dev), xk=pre["xk"],
+                  xv=pre["xv"])
+    for t in range(8):
+        got, caches = model.decode_step(
+            params, caches, tok[:, t:t + 1],
+            torch.full((1,), t, dtype=torch.int32, device=dev))
+    assert got.shape == (1, 51968) and bool(torch.isfinite(got).all())
+    for g, w in ((got, want), (caches["k"], pre["k"]),
+                 (caches["v"], pre["v"])):
+        assert _bf16_ulps(g, w) <= FULL_WIDTH_ULPS
+    assert _bf16_ulps(zero, want) > FULL_WIDTH_ULPS

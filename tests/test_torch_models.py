@@ -1,7 +1,9 @@
 """Parity of the port's model path (`repro_torch.configs`,
 `repro_torch.models`, `convert.params_from_numpy`) with the JAX package's,
-for the dense, MoE, SSM and hybrid families, on the CPU.  The same numpy
-inputs go through the reference function and the port's.
+for the dense, MoE, SSM and hybrid families, on the CPU, and the parameter
+trees of every family (the enc-dec and VLM models are
+tests/test_torch_encdec_vlm.py's).  The same numpy inputs go through the
+reference function and the port's.
 
 Tolerances, each measured on the CPU (torch 2.13.0+cpu, jax 0.9.0) and
 set with room above it:
@@ -67,7 +69,7 @@ torch.set_num_threads(1)
 
 DENSE = ["llama3.2-3b", "gemma-2b", "granite-8b", "qwen2.5-32b"]
 FAMILIES = ["granite-moe-1b-a400m", "mamba2-780m", "jamba-1.5-large-398b"]
-NOT_PORTED = ["whisper-base", "llama-3.2-vision-11b"]
+ENCDEC_VLM = ["whisper-base", "llama-3.2-vision-11b"]
 LAYER_TOL = dict(rtol=2e-5, atol=2e-5)
 
 
@@ -312,7 +314,7 @@ def _j_tree(arch, seed=0):
     return jax.tree.map(np.asarray, params)
 
 
-@pytest.mark.parametrize("arch", DENSE + FAMILIES)
+@pytest.mark.parametrize("arch", DENSE + FAMILIES + ENCDEC_VLM)
 def test_init_params_tree_and_scales_match_jax(arch):
     """Key paths and shapes equal to the reference's `init_params` tree;
     every drawn leaf's standard deviation within 5 % of its scale, its mean
@@ -351,15 +353,6 @@ def test_init_params_tree_and_scales_match_jax(arch):
         arch)), cfg.d_model)
 
 
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_other_families_raise_naming_their_roadmap_item(arch):
-    cfg = reduced_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        TP.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        build_model(cfg, device="cpu")
-
-
 def test_layer_norm_and_gelu_mlp_layouts_match_jax():
     """`_attn_params` with `norm == "layer"` and `qkv_bias`, and the plain
     GELU MLP's layout (the dense family's config space, here a whisper-like
@@ -396,7 +389,8 @@ def test_full_width_experts_pad_as_the_mesh_free_reference(arch):
         assert sum(map(math.prod, got.values())) == 3_298_985_472
 
 
-@pytest.mark.parametrize("arch", DENSE + ["jamba-1.5-large-398b"])
+@pytest.mark.parametrize("arch", DENSE + ["jamba-1.5-large-398b"]
+                         + ENCDEC_VLM)
 def test_params_numpy_round_trip_is_bit_equal(arch):
     cfg = reduced_config(arch)
     jtree = _j_tree(arch, seed=3)
@@ -416,8 +410,9 @@ def test_params_numpy_round_trip_is_bit_equal(arch):
     broken = dict(jtree, embed=jtree["embed"][:-1])
     with pytest.raises(ValueError, match="embed"):
         params_from_numpy(broken, cfg, device="cpu")
+    last = list(jtree)[-1]  # "mlp", "dec_mlp" or "cross"
     with pytest.raises(KeyError):
-        params_from_numpy({k: v for k, v in jtree.items() if k != "mlp"},
+        params_from_numpy({k: v for k, v in jtree.items() if k != last},
                           cfg, device="cpu")
 
 
@@ -444,23 +439,33 @@ def _check(got, want, dtype):
         assert _bf16_ulps(got, want) <= 2
 
 
-def _models(arch, dtype, seed=1):
-    """The reference model and the port's with the same weights: the
-    reference's init tree, norms and biases (the SSD's too) redrawn nonzero
-    (numpy) so that they count."""
-    jd, td = DTYPES[dtype]
-    cfg, jcfg = reduced_config(arch), j_reduced_config(arch)
+def _redrawn_tree(arch, seed=1):
+    """The reference's reduced init tree (numpy) with its norms, biases
+    (the SSD's too; scale 0.1) and the VLM's cross-attention gate (scale
+    1) redrawn nonzero from a numpy generator, so that they count: at init the layer norms'
+    zero scales zero whisper's logits and the zero gate cuts the image
+    off (ROADMAP queue 3).  Returns (tree, the generator)."""
     tree = _j_tree(arch, seed)
     rng = _rng(seed)
     for path, a in list(TP.leaves(tree)):
         name = path.split("/")[-1]
         if name.startswith(("b", "norm", "final_norm")) or name in (
-                "conv_b", "dt_bias"):
+                "conv_b", "dt_bias", "gate"):
             *parents, leaf = path.split("/")
             node = tree
             for p in parents:
                 node = node[p]
-            node[leaf] = _f32(*a.shape, rng=rng, scale=0.1)
+            node[leaf] = _f32(*a.shape, rng=rng,
+                              scale=1.0 if name == "gate" else 0.1)
+    return tree, rng
+
+
+def _models(arch, dtype, seed=1):
+    """The reference model and the port's with the same weights,
+    `_redrawn_tree`'s."""
+    jd, td = DTYPES[dtype]
+    cfg, jcfg = reduced_config(arch), j_reduced_config(arch)
+    tree, rng = _redrawn_tree(arch, seed)
     jparams = jax.tree.map(jnp.asarray, tree)
     tparams = params_from_numpy(tree, cfg, device="cpu", dtype=td)
     jm = j_build_model(jcfg, remat=False, compute_dtype=jd)

@@ -438,12 +438,12 @@ def test_engine_run_matches_jax(tree, K):
 
 
 def test_engine_refuses_what_is_not_ported(tree, tmp_path):
-    """A dense, MoE, SSM or hybrid model config builds (its bf16 K/V caches
-    of batch_size x max_seq, its f32 SSD states); a config of a family not
-    ported yet raises, naming its ROADMAP item, instead of running
-    something else, and so does the int8 KV cache; the durable engine
-    (`durable_dir`), ported since, runs and reports its store in
-    `health()`."""
+    """A model config of every family builds (its bf16 K/V caches of
+    batch_size x max_seq, its f32 SSD states, the enc-dec and VLM
+    families' cross K/V) and serves; the int8 KV cache, not ported yet,
+    raises, naming its ROADMAP item, instead of running something else;
+    the durable engine (`durable_dir`), ported since, runs and reports its
+    store in `health()`."""
     cfg = reduced_config(MODEL_ARCH)
     eng = ServeEngine(cfg, init_params(cfg, device="cpu"),
                       EngineConfig(batch_size=2, max_seq=8), device="cpu",
@@ -455,7 +455,9 @@ def test_engine_refuses_what_is_not_ported(tree, tmp_path):
                         ("granite-moe-3b-a800m", ("k", "v")),
                         ("mamba2-780m", ("ssm_h", "ssm_conv")),
                         ("jamba-1.5-large-398b",
-                         ("k", "v", "ssm_h", "ssm_conv"))):
+                         ("k", "v", "ssm_h", "ssm_conv")),
+                        ("whisper-base", ("k", "v", "xk", "xv")),
+                        ("llama-3.2-vision-11b", ("k", "v", "xk", "xv"))):
         fcfg = reduced_config(arch)
         eng = ServeEngine(fcfg, init_params(fcfg, device="cpu"),
                           EngineConfig(batch_size=2, max_seq=8),
@@ -466,13 +468,8 @@ def test_engine_refuses_what_is_not_ported(tree, tmp_path):
                                            else torch.bfloat16), (arch, k)
         assert eng.run([[Request(uid=0, prompt_len=4, max_new_tokens=3)]],
                        max_steps=20)["completed"] == 1, arch
-    for arch, item in (("whisper-base", "8.3"),
-                       ("llama-3.2-vision-11b", "8.3")):
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP queue 1 item {item}"):
-            ServeEngine(reduced_config(arch), None, EngineConfig(),
-                        device="cpu", tree=tree)
-    with pytest.raises(NotImplementedError, match="item 8.4"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP queue 1 item 8.4"):
         TMR.build_model(cfg, kv_int8=True, device="cpu")
     eng = ServeEngine(None, None, EngineConfig(
         batch_size=4, sched_window=4, durable_dir=str(tmp_path / "d")),
