@@ -591,6 +591,7 @@ PATH_KERNELS = {
     "J": ("windowed_merge", "topk_smallest", "elim_sort"),
     "K": ("windowed_merge", "topk_smallest", "elim_sort"),
     "L": ("windowed_merge", "topk_smallest", "elim_sort"),
+    "M": (),  # training has no hand kernel
 }
 PREFILL_BATCH = 4096
 # Kernel launches inside `run_window` calls only (prefills excluded), per
@@ -3797,6 +3798,576 @@ def path_l(tree, c=PATH_L, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# path M: the int8 KV cache and training
+# ---------------------------------------------------------------------------
+
+# M1: llama3.2-3b at full width in bf16 (seeded, on the card): 4 prompts of
+# 32 tokens teacher-forced through `decode_step` from empty int8 caches
+# (`kv_int8=True`, max_seq 512) and from bf16 ones, the same greedy token at
+# every step and the softmaxes within 0.05 (the bar of the reference's
+# tests/test_kernel_integration.py:45-75); the cache bytes of
+# `EngineConfig(batch_size=8, max_seq=512)` in int8 and in bf16; a decode
+# step of 8 slots on each, host-issued and on the device (a replayed CUDA
+# graph); 8 steps of `make_serve_step(kv_int8=True)` against the bf16 serve
+# step.  M2: llama3.2-3b trained at full width: f32 masters from the seeded
+# generator, bf16 compute, remat, `AdamWConfig(lr=1e-3,
+# state_dtype="int8")` (the launcher's lr), `SyntheticLMDataset(vocab,
+# seq_len=1024, fixed_map=True)` at batch 2: 8 steps, 2 warm-up and 6
+# timed with CUDA events, one more profiled by range; every loss finite and
+# the last below the first.  M3: reduced llama3.2-3b, granite-moe-1b-a400m
+# and mamba2-780m card against CPU from one numpy tree in f32 (TF32 off):
+# the loss and every gradient leaf; one `adamw_update` a state dtype; the
+# checkpoint drill of tests/test_train.py:70-81 on reduced gemma-2b on the
+# card (a failure injected at step 12, `latest_step` 10, the restored state
+# bit-equal to what was saved, the run resumed to 20, its losses against
+# an uninterrupted run's, the card's checkpoint read back on the CPU); and
+# reduced llama3.2-3b's int8 decode card against CPU, f32 and bf16.
+PATH_M = dict(arch="llama3.2-3b", reduced=False, seed=0, prompts=4,
+              prompt_len=32, max_seq=512, slots=8, serve_steps=8, reps=10,
+              batch=2, seq_len=1024, lr=1e-3, state_dtype="int8",
+              warmup=2, timed=6,
+              small=("llama3.2-3b", "granite-moe-1b-a400m", "mamba2-780m"),
+              small_len=16, drill="gemma-2b", drill_steps=20, drill_every=5,
+              drill_fail=12, int8_steps=8)
+# M1's bars: the reference test's max |softmax(int8) - softmax(bf16)|; and
+# the int8 decode's logits within M1_LOGIT_REL of the step's largest
+# |logit| from the bf16 decode's (measured 7.6 % at full width on an H100,
+# 0.5 % for the reduced model on the CPU): random-weight layers amplify
+# the cache's quantization noise (about 0.7 % of a row's values) through
+# 28 layers, as they amplify bf16's own rounding (the bf16 decode's
+# distance from recompute, `train_logits` of the prompts, is printed
+# beside it: 4.3 %).  With random weights the 28-layer residual stream
+# carries the logits far from the tied embedding's token: they are near
+# Gaussian over 128,256 columns and the top two sit about 0.2 apart, so
+# rounding alone moves the greedy token at some steps (bf16 decode
+# against recompute does), and the reference's greedy bar, which its
+# reduced model meets (tests/test_torch_kv_int8.py), is read here as
+# counts.
+M1_SOFTMAX = 0.05
+M1_LOGIT_REL = 0.15
+# M3's tolerances, the CPU tests' (tests/test_torch_grad.py,
+# test_torch_train.py, test_torch_kv_int8.py): the loss within 1e-6
+# relative, each gradient leaf within 1e-5 of its largest |g|; AdamW's f32
+# leaves within 2 f32 ulps of the leaf's largest value, int8 payloads
+# within 2 quanta, scales within 2 bf16 ulps.  The int8 decode's logits
+# within J4's bf16 bound (2 ulps) in f32 too: a K/V value that card and CPU
+# round an f32 ulp apart can land on either side of a quantum's half, so
+# a few payload entries differ by a quantum even in f32 (one such moved a
+# reduced model's f32 logits by 1.5e-3, 30x J4's f32 bound).  The drill's resumed losses against the uninterrupted run's
+# on the card: within 1e-3 relative (the embedding's and the loss's
+# backward add with atomics, so two runs on the card differ by ulps).
+M3_GRAD = dict(loss=1e-6, leaf=1e-5)
+M3_DRILL_LOSS = 1e-3
+H100_BF16_FLOPS = 989e12  # H100 SXM dense bf16 peak
+M_LABELS = {"forward": "M forward", "loss": "M loss",
+            "backward": "M backward", "optimizer": "M optimizer"}
+
+
+def _softmax_gap(a, b) -> float:
+    return float((a.float().softmax(-1) - b.float().softmax(-1)).abs().max())
+
+
+def _bytes(tree) -> int:
+    from repro_torch.train.optimizer import tree_leaves
+
+    out = 0
+    for e in tree_leaves(tree):
+        for t in (e if isinstance(e, tuple) else (e,)):
+            out += t.numel() * t.element_size()
+    return out
+
+
+def path_m1(c=PATH_M, device="cuda"):
+    """M1: the int8 KV cache at full width against bf16 caches (decode,
+    bytes, device time) and `make_serve_step(kv_int8=True)`."""
+    import torch
+
+    from repro_torch.kernels.timing import cuda_ms, graph_ms
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.steps import make_serve_step
+
+    dev = torch.device(device)
+    cfg, model, params, _ = path_k_build(c["arch"], dict(c, expect={}),
+                                         device, tag="16 path M1")
+    m8 = build_model(cfg, kv_int8=True, device=dev)
+    P, L, S = c["prompts"], c["prompt_len"], c["max_seq"]
+    gen = torch.Generator(device=dev).manual_seed(c["seed"] + 1)
+    tok = torch.randint(0, cfg.vocab, (P, L), generator=gen, device=dev,
+                        dtype=torch.int32)
+    caches = {name: init_caches(cfg, P, S, kv_int8=name == "int8",
+                                device=dev) for name in ("int8", "bf16")}
+    with torch.no_grad():
+        recompute = model.train_logits(params, {"tokens": tok})[0].float()
+    gap = rel = noise = 0.0
+    agree, agree_bf16, flips = 0, 0, []  # flips: bf16's top-2 gap there
+    for t in range(L):
+        lengths = torch.full((P,), t, dtype=torch.int32, device=dev)
+        l8, _ = m8.decode_step(params, caches["int8"], tok[:, t:t + 1],
+                               lengths)
+        lb, _ = model.decode_step(params, caches["bf16"], tok[:, t:t + 1],
+                                  lengths)
+        if not bool(torch.isfinite(l8).all()):
+            raise AssertionError(f"path M1: logits not finite at step {t}")
+        gap = max(gap, _softmax_gap(l8, lb))
+        lbf, l8f, ref = lb.float(), l8.float(), recompute[:, t]
+        rel = max(rel, float((l8f - lbf).abs().max() / lbf.abs().max()))
+        noise = max(noise, float((lbf - ref).abs().max() / ref.abs().max()))
+        same = l8.argmax(-1) == lb.argmax(-1)
+        agree += int(same.sum())
+        agree_bf16 += int((lb.argmax(-1) == ref.argmax(-1)).sum())
+        picked = lbf.gather(1, l8.argmax(-1)[:, None])[:, 0]
+        flips += (lbf.amax(-1) - picked)[~same].tolist()
+    if gap >= M1_SOFTMAX or rel > M1_LOGIT_REL:
+        raise AssertionError(f"path M1: softmax gap {gap} (bound "
+                             f"{M1_SOFTMAX}), int8 logits {rel} from bf16's "
+                             f"(bound {M1_LOGIT_REL})")
+    # `make_serve_step(kv_int8=True)`: 8 greedy steps from the prompts'
+    # caches, each token the argmax of `decode_step` on a copy of the
+    # caches given the same inputs; the bf16 serve step's tokens beside
+    served = {}
+    for name, kv_int8 in (("int8", True), ("bf16", False)):
+        serve, _ = make_serve_step(cfg, kv_int8=kv_int8, device=dev)
+        batch = {"tokens": tok[:, -1:],
+                 "lengths": torch.full((P,), L - 1, dtype=torch.int32,
+                                       device=dev),
+                 "caches": {k: v.clone() for k, v in caches[name].items()}}
+        out = []
+        for _ in range(c["serve_steps"]):
+            batch = serve(params, batch)
+            out.append(batch["tokens"])
+        if int(batch["lengths"].min()) != L - 1 + c["serve_steps"]:
+            raise AssertionError("path M1: serve step lengths")
+        served[name] = torch.cat(out, dim=1)
+    replay, fed = caches["int8"], tok[:, -1:]
+    for i in range(c["serve_steps"]):
+        lengths = torch.full((P,), L - 1 + i, dtype=torch.int32, device=dev)
+        lg, _ = m8.decode_step(params, replay, fed, lengths)
+        fed = lg.argmax(-1).to(torch.int32)[:, None]
+        if not torch.equal(fed[:, 0], served["int8"][:, i]):
+            raise AssertionError(f"path M1: serve step {i}'s tokens are not "
+                                 f"decode_step's argmax")
+    n = P * L
+    log(f"[16 path M1] {P} prompts of {L} tokens teacher-forced from empty "
+        f"caches (max_seq {S}), int8 against bf16: max |softmax diff| "
+        f"{gap:.3g} (< {M1_SOFTMAX}); logits within {rel:.4g} of the "
+        f"largest (<= {M1_LOGIT_REL}), the bf16 decode's own within "
+        f"{noise:.4g} of recompute; the same greedy token "
+        f"as bf16 at {agree} of {n} steps (bf16 decode as recompute at "
+        f"{agree_bf16}), the {n - agree} others where the bf16 top logit "
+        f"is above the int8 choice's by "
+        + (f"{min(flips):.4f}-{max(flips):.4f}" if flips else "-")
+        + f"); {c['serve_steps']} `make_serve_step(kv_int8=True)` steps, "
+        f"each token `decode_step`'s argmax; {int((served['int8'] == served['bf16']).sum())} "
+        f"of {served['int8'].numel()} equal to the bf16 serve step's")
+    del caches
+    # the engine's cache and a decode step of its 8 slots, each cache kind
+    B = c["slots"]
+    lengths = torch.full((B,), L, dtype=torch.int32, device=dev)
+    tokens = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device=dev,
+                           dtype=torch.int32)
+    w_bytes = decode_weight_bytes(cfg, params, B)
+    parts = []
+    for name, m in (("int8", m8), ("bf16", model)):
+        cache = init_caches(cfg, B, S, kv_int8=name == "int8", device=dev)
+        nbytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
+        # one position of one layer: K and V rows (and their scales)
+        row = sum(v[0, 0, 0].numel() * v.element_size()
+                  for v in cache.values())
+        valid = (L + 1) * B * row * cfg.n_layers
+
+        def fn(m=m, cache=cache):
+            return m.decode_step(params, cache, tokens, lengths)
+
+        bound = (w_bytes + valid) / HBM_BYTES_PER_S * 1e3
+        if dev.type == "cuda":
+            times = (f"{cuda_ms(fn, iters=c['reps']):.3f} ms host-issued, "
+                     f"{graph_ms(fn, iters=2, replays=c['reps']):.3f} ms on "
+                     f"the device (a replayed CUDA graph)")
+        else:
+            fn()
+            times = "times not measured (no card)"
+        parts.append(
+            f"{name}: cache {sum(nbytes.values()):,} bytes ("
+            + ", ".join(f"{k} {v:,}" for k, v in nbytes.items())
+            + f"), a step {times}, bound {bound:.3f} ms (weights and the "
+            f"valid K/V prefix at 3.35 TB/s)")
+        del cache
+    log(f"[16 path M1] {B} slots, max_seq {S}, lengths {L}: "
+        + "; ".join(parts))
+    return cfg
+
+
+def _timed_steps(step, params, opt, batch, n, dev):
+    """`n` train steps, each between CUDA events (host clocks on the CPU):
+    (params, opt, ms list, losses)."""
+    import torch
+
+    ms, losses = [], []
+    for _ in range(n):
+        if dev.type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            params, opt, metrics = step(params, opt, batch)
+            b.record()
+            torch.cuda.synchronize()
+            ms.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return params, opt, ms, losses
+
+
+def path_m2(c=PATH_M, device="cuda"):
+    """M2: llama3.2-3b trained at full width (f32 masters, bf16 compute,
+    remat, int8 first moments).  Returns the steps run (the main path's
+    windows)."""
+    import statistics
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    import repro_torch.train.steps as TS
+    from repro_torch.configs.registry import get_config, reduced_config
+    from repro_torch.data.loader import to_device
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models.params import init_params, leaves
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    dev = torch.device(device)
+    cfg = (reduced_config if c["reduced"] else get_config)(c["arch"])
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    opt_cfg = AdamWConfig(lr=c["lr"], state_dtype=c["state_dtype"])
+    step, model = TS.make_train_step(cfg, None, opt_cfg, remat=True,
+                                     device=dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        c["seed"]), dtype=torch.float32, device=dev)
+    opt = adamw_init(params, opt_cfg)
+    data = SyntheticLMDataset(cfg.vocab, seq_len=c["seq_len"],
+                              fixed_map=True, seed=c["seed"])
+    batch = to_device(data.batch(0, c["batch"]), dev)
+    N = sum(w.numel() for _, w in leaves(params))
+    tokens = c["batch"] * c["seq_len"]
+    t0 = time.perf_counter()
+    params, opt, warm_ms, losses = _timed_steps(step, params, opt, batch,
+                                                c["warmup"], dev)
+    params, opt, ms, more = _timed_steps(step, params, opt, batch,
+                                         c["timed"], dev)
+    losses += more
+    took = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None)
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"path M2: losses {losses} not finite or not "
+                             f"falling")
+    pairs = [e for _, e in leaves(opt.m) if isinstance(e, tuple)]
+    scales = sum(s.numel() * s.element_size() for _, s in pairs)
+    parts = {"masters": _bytes(params), "gradients (f32)": 4 * N,
+             "m": _bytes(opt.m) - scales, "m scales": scales,
+             "v": _bytes(opt.v)}
+    med = statistics.median(ms)
+    opt_bytes = 2 * parts["masters"] + parts["gradients (f32)"] + 2 * (
+        parts["m"] + parts["m scales"] + parts["v"])
+    flops_ms = 6 * N * tokens / H100_BF16_FLOPS * 1e3
+    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[16 path M2] {cfg.name} training: {N:,} parameters, batch "
+        f"{c['batch']} x {c['seq_len']} tokens, f32 masters, bf16 compute, "
+        f"remat, AdamW lr {c['lr']} with {c['state_dtype']} first moments; "
+        "bytes " + ", ".join(f"{k} {v:,}" for k, v in parts.items())
+        + ", peak allocated "
+        + (f"{peak:,}" if peak is not None else "not measured"))
+    log(f"[16 path M2] losses {', '.join(f'{x:.4f}' for x in losses)}; "
+        f"warm-up steps {', '.join(f'{x:.1f}' for x in warm_ms)} ms; "
+        f"{c['timed']} timed steps {med:.3f} ms median ({min(ms):.3f}-"
+        f"{max(ms):.3f}), {tokens / med * 1e3:,.1f} tokens/s; bound "
+        f"{flops_ms + bytes_ms:.3f} ms (6 N tokens {6 * N * tokens:.4g} "
+        f"FLOP at 989 TFLOP/s {flops_ms:.3f} ms + the optimizer's "
+        f"{opt_bytes:,} bytes at 3.35 TB/s {bytes_ms:.3f} ms), model-FLOPs "
+        f"share {flops_ms / med:.4f}; {took:.1f}s")
+    if dev.type == "cuda":
+        TRACE_DIR.mkdir(parents=True, exist_ok=True)
+        path = TRACE_DIR / "M2_train_step.json"
+        prof = profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            schedule=schedule(wait=0, warmup=1, active=1),
+            on_trace_ready=lambda p: p.export_chrome_trace(str(path)))
+        targets = [(model, "train_logits", M_LABELS["forward"]),
+                   (TS, "cross_entropy_loss", M_LABELS["loss"]),
+                   (torch.autograd, "grad", M_LABELS["backward"]),
+                   (TS, "adamw_update", M_LABELS["optimizer"])]
+        with labelled(targets), prof:
+            for _ in range(2):
+                params, opt, metrics = step(params, opt, batch)
+                torch.cuda.synchronize()
+                prof.step()
+        by = device_us_by_label(path)
+        total = sum(us for _, us in by.values())
+        log(f"[16 path M2] one profiled step on the device by range "
+            f"({sum(n for n, _ in by.values())} calls, {total / 1e3:.3f} "
+            "ms): " + "; ".join(f"{k} {us / 1e3:.3f} ms in {n} calls"
+                                for k, (n, us) in sorted(by.items())))
+    del params, opt
+    return c["warmup"] + c["timed"]
+
+
+def _grads_on(cfg, tree_np, batch_np, device):
+    """(loss, {path: gradient on the CPU}) of `cfg`'s training loss in f32
+    on `device` from numpy weights and batch."""
+    import torch
+
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import cross_entropy_loss
+    from repro_torch.models.params import leaves
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg, compute_dtype=torch.float32, device=device)
+    params = params_from_numpy(tree_np, cfg, device=device,
+                               dtype=torch.float32)
+    flat = [w.requires_grad_(True) for _, w in leaves(params)]
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in batch_np.items()}
+    logits, aux = model.train_logits(params, batch)
+    total = cross_entropy_loss(logits, batch["labels"], cfg.vocab) + 0.01 * aux
+    grads = torch.autograd.grad(total, flat)
+    return float(total.detach()), {p: g.cpu() for (p, _), g in
+                                   zip(leaves(params), grads)}
+
+
+def _adamw_on(device, state_dtype, p_np, grads_np):
+    """Parameters and moments after one `adamw_update` on `device`: name ->
+    (f32 numpy array, stored dtype)."""
+    import torch
+
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update)
+
+    cfg = AdamWConfig(lr=1e-2, state_dtype=state_dtype)
+    p = {k: torch.as_tensor(v, device=device) for k, v in p_np.items()}
+    st = adamw_init(p, cfg)
+    p, st = adamw_update(p, {k: torch.as_tensor(v, device=device)
+                             for k, v in grads_np.items()}, st, cfg)
+    out = {f"p/{k}": v for k, v in p.items()}
+    for moment in ("m", "v"):
+        for k, e in getattr(st, moment).items():
+            for i, t in enumerate(e if isinstance(e, tuple) else (e,)):
+                out[f"{moment}/{k}/{i}"] = t
+    return {k: (t.cpu().float().numpy(), t.dtype) for k, t in out.items()}
+
+
+def path_m3(c=PATH_M, device="cuda"):
+    """M3: reduced models' gradients, AdamW, the checkpoint drill and the
+    int8 decode, card against CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import repro_torch.train.loop as TL
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import init_params
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.optimizer import tree_leaves
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("path M3: TF32 matmuls are on")
+    dev, cpu = torch.device(device), torch.device("cpu")
+    notes = []
+    for arch in c["small"]:
+        cfg = reduced_config(arch)
+        tree_np = params_to_numpy(redraw_nonzero(init_params(
+            cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+            device=cpu), torch.Generator().manual_seed(5)))
+        S = 2 * cfg.ssm.chunk if cfg.ssm else c["small_len"]
+        tok = np.random.default_rng(4).integers(0, cfg.vocab, (2, S + 1))
+        batch = {"tokens": tok[:, :-1].astype(np.int32),
+                 "labels": tok[:, 1:].astype(np.int32)}
+        (lg, gg), (lc, gc) = (_grads_on(cfg, tree_np, batch, d)
+                              for d in (dev, cpu))
+        rel = abs(lg - lc) / abs(lc)
+        worst = max(float((gg[k] - gc[k]).abs().max())
+                    / max(float(gc[k].abs().max()), 1e-30) for k in gc)
+        if rel > M3_GRAD["loss"] or worst > M3_GRAD["leaf"]:
+            raise AssertionError(f"path M3 {arch}: loss {rel:.3g}, "
+                                 f"gradients {worst:.3g} (relative)")
+        notes.append(f"{cfg.name} loss {rel:.2g}, gradients {worst:.2g}")
+    rng = np.random.default_rng(1)
+    p_np = {"stack": rng.standard_normal((2, 4, 512)).astype(np.float32),
+            "norm": rng.standard_normal((256,)).astype(np.float32),
+            "tiny": rng.standard_normal((3,)).astype(np.float32)}
+    g_np = {k: (3 * rng.standard_normal(v.shape)).astype(np.float32)
+            for k, v in p_np.items()}
+    for sd in ("fp32", "bf16", "int8"):
+        a, b = (_adamw_on(d, sd, p_np, g_np) for d in (dev, cpu))
+        for k, (want, dtype) in b.items():
+            top = float(np.abs(want).max())
+            diff = float(np.abs(a[k][0] - want).max())
+            if a[k][1] != dtype:
+                raise AssertionError(f"path M3: adamw_update {sd} {k}: "
+                                     f"{a[k][1]} on the card, {dtype} on "
+                                     f"the CPU")
+            if dtype == torch.int8:
+                ok = diff <= 2  # quanta
+            elif dtype == torch.bfloat16:
+                ok = diff <= 2 * 2.0 ** (math.floor(math.log2(top)) - 7)
+            else:
+                ok = diff <= 2 * float(np.spacing(np.float32(top)))
+            if not ok:
+                raise AssertionError(f"path M3: adamw_update {sd} {k}: "
+                                     f"{diff} apart")
+    notes.append("adamw_update fp32, bf16, int8 within the CPU tests' bounds")
+    log("[16 path M3] card against CPU, f32 (TF32 off), relative to the "
+        "CPU's: " + "; ".join(notes))
+    # the checkpoint drill on the card
+    cfg = reduced_config(c["drill"])
+    root = TRACE_DIR / "M3_ckpt"
+    if root.exists():
+        shutil.rmtree(root)
+    loop = TL.LoopConfig(steps=c["drill_steps"], batch_size=2,
+                         ckpt_every=c["drill_every"], ckpt_dir=str(root))
+    saved, save = {}, ckpt.save
+
+    def keep(d, step, tree, **kw):
+        saved[step] = ckpt._host_copy(tree)
+        return save(d, step, tree, **kw)
+
+    ckpt.save = keep
+    try:
+        try:
+            TL.run(cfg, loop, injector=FailureInjector(
+                fail_at=(c["drill_fail"],)), device=dev)
+            raise AssertionError("path M3: the injected failure never fired")
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+    finally:
+        ckpt.save = save
+    last = ckpt.latest_step(root)
+    if last != 10:
+        raise AssertionError(f"path M3: latest_step {last}, not 10")
+    like = {"params": init_params(cfg, dtype=torch.float32, device=dev)}
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    like["opt"] = adamw_init(like["params"], AdamWConfig(lr=1e-3))
+    restored = ckpt.restore(root, like)
+
+    def flat(tree):
+        return [t for e in tree_leaves({"p": tree["params"],
+                                        "m": tree["opt"].m,
+                                        "v": tree["opt"].v})
+                for t in (e if isinstance(e, tuple) else (e,))] + [
+            tree["opt"].step]
+
+    same = all(a.device.type == dev.type and a.dtype == b.dtype
+               and torch.equal(a.cpu(), b) for a, b in
+               zip(flat(restored), flat(saved[10])))
+    if not same:
+        raise AssertionError("path M3: the restored state is not what was "
+                             "saved at step 10")
+    res = TL.run(cfg, loop, device=dev)
+    whole = TL.run(cfg, TL.LoopConfig(steps=c["drill_steps"], batch_size=2),
+                   device=dev)
+    if res["resumed_from"] != 10 or res["steps_done"] != c["drill_steps"]:
+        raise AssertionError(f"path M3: resumed from {res['resumed_from']}, "
+                             f"{res['steps_done']} steps")
+    drift = max(abs(a - b) / abs(b) for a, b in
+                zip(res["losses"], whole["losses"][10:]))
+    if drift > M3_DRILL_LOSS:
+        raise AssertionError(f"path M3: resumed losses {drift:.3g} from the "
+                             f"uninterrupted run's")
+    like_cpu = {"params": init_params(cfg, dtype=torch.float32, device=cpu)}
+    like_cpu["opt"] = adamw_init(like_cpu["params"], AdamWConfig(lr=1e-3))
+    on_cpu = ckpt.restore(root, like_cpu)
+    final = {"params": res["params"], "opt": res["opt_state"]}
+    if not all(torch.equal(a, b.cpu()) for a, b in
+               zip(flat(on_cpu), flat(final))):
+        raise AssertionError("path M3: the card's checkpoint read on the CPU "
+                             "differs from the card's state")
+    shutil.rmtree(root)
+    log(f"[16 path M3] checkpoint drill, reduced {c['drill']} on the card: "
+        f"failure at step {c['drill_fail']}, latest_step {last}, the "
+        f"restored state bit-equal to the one saved, resumed to "
+        f"{res['steps_done']}; its losses within {drift:.3g} (relative, <= "
+        f"{M3_DRILL_LOSS}) of an uninterrupted run's; the final checkpoint "
+        f"read on the CPU bit-equal to the card's state")
+    # reduced llama3.2-3b's int8 decode, card against CPU
+    cfg = reduced_config(c["small"][0])
+    tree_np = params_to_numpy(init_params(
+        cfg, torch.Generator().manual_seed(7), dtype=torch.float32,
+        device=cpu))
+    tok = np.random.default_rng(8).integers(
+        0, cfg.vocab, (2, c["int8_steps"])).astype(np.int32)
+    notes = []
+    for name, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        outs = []
+        for d in (dev, cpu):
+            m = build_model(cfg, compute_dtype=dt, kv_int8=True, device=d)
+            p = params_from_numpy(tree_np, cfg, device=d, dtype=dt)
+            caches = init_caches(cfg, 2, 16, dtype=dt, kv_int8=True,
+                                 device=d)
+            logits = []
+            for t in range(c["int8_steps"]):
+                lg, _ = m.decode_step(
+                    p, caches, torch.as_tensor(tok[:, t:t + 1], device=d),
+                    torch.full((2,), t, dtype=torch.int32, device=d))
+                logits.append(lg.cpu())
+            outs.append((logits, {k: v.cpu() for k, v in caches.items()}))
+        (lg_d, c_d), (lg_c, c_c) = outs
+        err = max(map(_bf16_ulps, lg_d, lg_c))
+        ok = err <= J4_BF16_ULPS
+        quanta = max(int((c_d[k].int() - c_c[k].int()).abs().max())
+                     for k in ("k", "v"))
+        if not ok or quanta > 2:
+            raise AssertionError(f"path M3: int8 decode {name} logits {err}, "
+                                 f"payload {quanta} quanta apart")
+        share = sum(int((c_d[k] != c_c[k]).sum()) for k in ("k", "v")) / sum(
+            c_c[k][:, :, :c["int8_steps"]].numel() for k in ("k", "v"))
+        notes.append(f"{name} logits {err:.3g} bf16 ulps, payloads within "
+                     f"{quanta} quanta ({share:.4f} of the written entries "
+                     f"differ)")
+    log(f"[16 path M3] {cfg.name} int8 decode, {c['int8_steps']} "
+        f"steps card against CPU: " + "; ".join(notes))
+
+
+def path_m(c=PATH_M, device="cuda"):
+    """Phase 16: M1-M3.  The path's launch counts are those of M2's
+    training steps, counted from 0 just before them (the training path has
+    no hand kernel).  Returns (launches, launches inside the steps,
+    steps)."""
+    import torch
+
+    from repro_torch.kernels import ops as KO
+
+    took = []
+    t0 = time.perf_counter()
+    path_m1(c, device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    took.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    counts_reset()
+    steps = path_m2(c, device)
+    launches, in_steps = counts_read("M")
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    took.append(time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    path_m3(c, device)
+    took.append(time.perf_counter() - t0)
+    log(f"[16 path M] M1 {took[0]:.1f}s, M2 {took[1]:.1f}s, M3 "
+        f"{took[2]:.1f}s")
+    return {k: launches.get(k, 0) for k in KO.LAUNCHES}, in_steps, steps
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -3906,12 +4477,18 @@ def main() -> int:
     log(f"[15 path L] {time.perf_counter() - t0:.1f}s | launches "
         f"{path_l_counts[0]} (inside its engine runs {path_l_counts[1]}, "
         f"{path_l_counts[2]} ticks)")
-    log(f"[16 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_m_counts = path_m()
+    log(f"[16 path M] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_m_counts[0]} (inside its training steps "
+        f"{path_m_counts[1]}, {path_m_counts[2]} steps)")
+    log(f"[17 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
         "G": path_g_counts, "H": path_h_counts, "I": path_i_counts,
-        "J": path_j_counts, "K": path_k_counts, "L": path_l_counts},
+        "J": path_j_counts, "K": path_k_counts, "L": path_l_counts,
+        "M": path_m_counts},
         phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {

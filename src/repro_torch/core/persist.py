@@ -18,10 +18,14 @@ The on-disk format is the reference's (``shard_<i>.npz``, a
 ``manifest.json`` with ``leaves``, ``dtypes``, ``n_shards``, ``shard_crc``
 and ``extra``), so each package validates the other's snapshot
 directories.  The reference flattens with `jax.tree_util`; here
-`flatten_with_paths` walks what a snapshot holds (dicts, `NamedTuple`s,
-dataclasses; tensors, numpy arrays and Python scalars as leaves) and names
-each leaf with the reference's key-path strings.  `host_tree` reads
-every device tensor of a tree back in one host read (counted in
+`flatten_with_paths` walks what a snapshot or a checkpoint holds (dicts,
+`NamedTuple`s, dataclasses, plain tuples and lists such as an int8
+optimizer moment's ``(q, scale)`` pair; tensors, numpy arrays and Python
+scalars as leaves) and names each leaf with the reference's key-path
+strings.  npz stores no bf16, so a bf16 leaf is written as f32 with the
+dtype tag ``bfloat16`` in the manifest, as the reference writes it, and
+read back into its `like` leaf's dtype.  `host_tree` reads every device
+tensor of a tree back in one host read (counted in
 `utils.hostsync.SYNCS`).  `save_trace` writes through `atomic_savez`, the
 metrics registry and the tracer's export through `atomic_write_json`, the
 serving tier's snapshots (`serve/durability.py`) through `save_tree`.
@@ -123,16 +127,18 @@ def atomic_savez(path: Path | str, *, compressed: bool = False,
 # ---------------------------------------------------------------------------
 
 # A tree's structure: ("leaf",), ("dict", keys, children),
-# ("namedtuple", type, children) or ("dataclass", type, field names,
-# children).
+# ("namedtuple", type, children), ("dataclass", type, field names,
+# children), ("tuple", children) or ("list", children).
 TreeDef = Tuple
 
 
 def flatten_with_paths(tree) -> Tuple[List[str], list, TreeDef]:
-    """(paths, leaves, treedef) of a tree of dicts, `NamedTuple`s and
-    dataclasses.  Leaves come in `jax.tree_util`'s order (dict keys sorted,
-    fields in declaration order) and paths are its key-path strings joined
-    by "/": ``['key']`` for a dict entry, ``.name`` for a field."""
+    """(paths, leaves, treedef) of a tree of dicts, `NamedTuple`s,
+    dataclasses, tuples and lists.  Leaves come in `jax.tree_util`'s order
+    (dict keys sorted, fields in declaration order, sequence items in
+    order) and paths are its key-path strings joined by "/": ``['key']``
+    for a dict entry, ``.name`` for a field, ``[i]`` for item i of a tuple
+    or list."""
     paths: List[str] = []
     leaves: list = []
 
@@ -150,6 +156,9 @@ def flatten_with_paths(tree) -> Tuple[List[str], list, TreeDef]:
             names = [f.name for f in dataclasses.fields(x)]
             return ("dataclass", type(x), names,
                     [child(f".{n}", getattr(x, n)) for n in names])
+        if isinstance(x, (tuple, list)):
+            return (type(x).__name__,
+                    [child(f"[{i}]", v) for i, v in enumerate(x)])
         paths.append("/".join(prefix))
         leaves.append(x)
         return ("leaf",)
@@ -170,26 +179,44 @@ def unflatten(treedef: TreeDef, leaves) -> Any:
             return {k: build(c) for k, c in zip(td[1], td[2])}
         if kind == "namedtuple":
             return td[1](*[build(c) for c in td[2]])
+        if kind in ("tuple", "list"):
+            return {"tuple": tuple, "list": list}[kind](
+                build(c) for c in td[1])
         return td[1](**{n: build(c) for n, c in zip(td[2], td[3])})
 
     return build(treedef)
 
 
+def _storable(t: torch.Tensor) -> torch.Tensor:
+    """`t` detached, a bf16 tensor widened (exactly) to f32."""
+    t = t.detach()
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _dtype_tag(x, arr: np.ndarray) -> str:
+    """The manifest's dtype of a leaf: ``bfloat16`` for a bf16 tensor
+    (stored as f32), else the stored array's."""
+    if isinstance(x, torch.Tensor) and x.dtype == torch.bfloat16:
+        return "bfloat16"
+    return str(arr.dtype)
+
+
 def _host_leaves(leaves) -> List[np.ndarray]:
-    """Every leaf as a numpy array.  The tensors on a device come back in
-    one host read: their bytes, concatenated on the device."""
+    """Every leaf as a numpy array (a bf16 tensor as f32).  The tensors on
+    a device come back in one host read: their bytes, concatenated on the
+    device."""
     out: List[Any] = [None] * len(leaves)
     on_device = []
     for i, x in enumerate(leaves):
         if isinstance(x, torch.Tensor):
             if x.device.type == "cpu":
-                out[i] = x.detach().numpy().copy()
+                out[i] = _storable(x).numpy().copy()
             else:
                 on_device.append(i)
         else:
             out[i] = np.asarray(x)
     if on_device:
-        ts = [leaves[i].detach().contiguous() for i in on_device]
+        ts = [_storable(leaves[i]).contiguous() for i in on_device]
         blob = host_array(torch.cat([t.reshape(-1).view(torch.uint8)
                                      for t in ts]))
         at = 0
@@ -232,7 +259,7 @@ def save_tree(
     root.mkdir(parents=True, exist_ok=True)
     paths, leaves, _ = flatten_with_paths(tree)
     host = _host_leaves(leaves)
-    dtypes = [str(arr.dtype) for arr in host]
+    dtypes = [_dtype_tag(x, arr) for x, arr in zip(leaves, host)]
 
     tmp = root / f".tmp_step_{step}_{os.getpid()}"
     if tmp.exists():

@@ -9,9 +9,11 @@ The layer never calls `scaled_dot_product_attention`, whose bf16 numerics
 differ from the reference's.
 
 All paths take explicit positions, so the same code serves training (iota),
-prefill and decode (the cache length).  The int8-KV scales of the
-reference's `attend_chunked` wait for the `kv_int8` slice (ROADMAP queue 1
-item 8.4).
+prefill and decode (the cache length).  An int8 K/V comes with its
+per-(token, head) scales (`k_scale`, `v_scale`) and is dequantized as the
+reference's is, ``int8.float() * scale.float()``: all of it at once in the
+dense branch (then cast to q's dtype), one chunk at a time in the chunked
+branch (kept in f32).
 """
 
 from __future__ import annotations
@@ -111,13 +113,20 @@ def attend_chunked(
     kv_positions: torch.Tensor,  # (B, Skv)
     kv_valid: Optional[torch.Tensor] = None,  # (B, Skv) bool
     kv_chunk: int = 2048,
+    k_scale: Optional[torch.Tensor] = None,  # (B, Skv, Hkv): int8 K/V
+    v_scale: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Flash-style attention: a loop over KV chunks with running (max,
     sum, acc), the live score block (B, Hq, Sq, kv_chunk).  Exact, not an
-    approximation.  Returns (B, Sq, Hq, hd)."""
+    approximation.  Returns (B, Sq, Hq, hd).  With `k_scale`/`v_scale`,
+    `k`/`v` are int8 and each chunk is dequantized inside the loop."""
     B, Sq, Hq, hd = q.shape
     Skv = k.shape[1]
     if Skv <= kv_chunk:
+        if k_scale is not None:
+            k = _dequant(k, k_scale).to(q.dtype)
+        if v_scale is not None:
+            v = _dequant(v, v_scale).to(q.dtype)
         return _attend_dense(q, k, v, dims, q_positions, kv_positions,
                              kv_valid)
 
@@ -133,19 +142,29 @@ def attend_chunked(
                       device=q.device)
     for c0 in range(0, Skv, kv_chunk):
         sl = slice(c0, c0 + kv_chunk)
+        kc, vc = k[:, sl], v[:, sl]
+        if k_scale is not None:
+            kc = _dequant(kc, k_scale[:, sl])
+        if v_scale is not None:
+            vc = _dequant(vc, v_scale[:, sl])
         # scores: (B, Sq, Hkv, G, C)
-        s = torch.einsum("bqkgd,bckd->bqkgc", qh, k[:, sl].float())
+        s = torch.einsum("bqkgd,bckd->bqkgc", qh, kc.float())
         mask = _mask(dims, q_positions, kv_positions[:, sl], kv_valid[:, sl])
         s = torch.where(mask, s, NEG_INF)
         m_new = torch.maximum(m_run, torch.amax(s, dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m_run - m_new)
         l_run = l_run * corr + torch.sum(p, dim=-1)
-        pv = torch.einsum("bqkgc,bckd->bqkgd", p, v[:, sl].float())
+        pv = torch.einsum("bqkgc,bckd->bqkgd", p, vc.float())
         acc = acc * corr[..., None] + pv
         m_run = m_new
     out = acc / torch.clamp_min(l_run[..., None], 1e-30)
     return out.reshape(B, Sq, Hq, hd).to(q.dtype)
+
+
+def _dequant(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """int8 K/V (B, C, Hkv, hd) times its (B, C, Hkv) scales, in f32."""
+    return x.float() * scale.float()[..., None]
 
 
 def _attend_dense(q, k, v, dims: AttnDims, q_positions, kv_positions,

@@ -64,6 +64,15 @@ def softplus(x: torch.Tensor) -> torch.Tensor:
     return torch.logaddexp(x, torch.zeros_like(x))
 
 
+def _clip(x: torch.Tensor) -> torch.Tensor:
+    """`jnp.clip(x, -60, 0)`, the exponent bound of the segment sums, as
+    ``minimum(maximum(x, -60), 0)``: where x sits on a bound (the diagonal's
+    exact 0), both halves of a tie take half the gradient, as in the
+    reference; `torch.clamp` would pass all of it.  Values are the same."""
+    return torch.minimum(torch.maximum(x, x.new_tensor(-60.0)),
+                         x.new_tensor(0.0))
+
+
 def _causal_conv(x: torch.Tensor, w: torch.Tensor,
                  b: torch.Tensor) -> torch.Tensor:
     """Depthwise causal conv via K shifted multiply-adds.  x: (B, S, C),
@@ -125,8 +134,7 @@ def ssd_forward(
     CB = torch.einsum("bcqgn,bckgn->bcgqk", C_c, B_c)  # (B, NC, G, Q, Q)
     CB = CB.repeat_interleave(hpg, dim=2)  # (B, NC, H, Q, Q)
     seg = dA_cum.transpose(2, 3)  # (B, NC, H, Q)
-    L = torch.exp(torch.clamp(seg[..., :, None] - seg[..., None, :],
-                              -60.0, 0.0))
+    L = torch.exp(_clip(seg[..., :, None] - seg[..., None, :]))
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x_in.device))
     scores = (torch.where(causal, CB.to(f32) * L, torch.zeros_like(L))
@@ -135,15 +143,14 @@ def ssd_forward(
     y_intra = torch.einsum("bchqk,bckhp->bcqhp", scores, xs_c)
 
     # Chunk states: S_c = sum_j exp(Acum_Q - Acum_j) dt_j B_j x_j^T
-    decay_to_end = torch.exp(torch.clamp(dA_cum[:, :, -1:, :] - dA_cum,
-                                         -60.0, 0.0))  # (B, NC, Q, H)
+    decay_to_end = torch.exp(_clip(dA_cum[:, :, -1:, :] - dA_cum))  # (B, NC, Q, H)
     wgt = (decay_to_end * dt_c).to(ed)
     B_h = B_c.repeat_interleave(hpg, dim=3)  # (B, NC, Q, H, N)
     chunk_state = torch.einsum("bcqhn,bcqhp->bchnp", B_h,
                                xs_c * wgt[..., None]).to(f32)  # (B,NC,H,N,P)
 
     # Inter-chunk recurrence over NC chunks.
-    chunk_decay = torch.exp(torch.clamp(dA_cum[:, :, -1, :], -60.0, 0.0))
+    chunk_decay = torch.exp(_clip(dA_cum[:, :, -1, :]))
     h = (h0.to(f32) if h0 is not None
          else torch.zeros((B, H, N, P), dtype=f32, device=x_in.device))
     h_in = []
@@ -154,7 +161,7 @@ def ssd_forward(
 
     # Inter-chunk output: y_i += C_i · exp(Acum_i) h_in
     C_h = C_c.repeat_interleave(hpg, dim=3)  # (B, NC, Q, H, N)
-    in_decay = torch.exp(torch.clamp(dA_cum, -60.0, 0.0)).to(ed)
+    in_decay = torch.exp(_clip(dA_cum)).to(ed)
     if N < P:
         y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
                                C_h * in_decay[..., None], h_in.to(ed))

@@ -4,8 +4,9 @@ Counterpart of src/repro/models/model.py (`Model._norm`, `_embed`,
 `_unembed`, `_attn_full`, `_attn_decode`, `_cross_attn`, `_context_kv`,
 `_ffn`, `_moe_ffn`, `_ssm_layer`, `_stack_full`, `_vlm_stack_full`,
 `_hybrid_stack_full`, `_encoder`, `_decoder_full`, `train_logits`,
-`prefill`, `decode_step`, `_hybrid_decode` and `_vlm_decode`), with the
-reference's signatures and return values.  The parameters are passed in,
+`prefill`, `decode_step`, `_hybrid_decode`, `_vlm_decode`, `_q8_kv` and
+`cross_entropy_loss`), with the reference's signatures and return
+values.  The parameters are passed in,
 as the reference's are: a nested dict of layer-stacked tensors
 (`params.init_params`, `convert.params_from_numpy`).  The layer loop is a
 Python ``for`` over the stacked leaves (``w[l]`` is a view), in place of
@@ -35,8 +36,18 @@ and returns the same dict; the caller keeps every length below the
 cache's depth (the engine ends a request on `full`), since an index past
 it raises on the CPU and is a device-side assert on the card.  The MoE
 layer's aux loss is summed over the layers by `train_logits` and dropped
-by decode, as in the reference.  The int8 KV cache raises
-`NotImplementedError` naming its ROADMAP item (`registry.build_model`).
+by decode, as in the reference.
+
+The int8 KV cache (`kv_int8`, dense and moe families): each new K/V row
+is quantized per (token, head) by `_q8_kv` and written with its bf16 scale
+into the caches' ``k_scale``/``v_scale``; attention dequantizes the cache
+(`attend_chunked`'s scales).  `remat` recomputes each layer body (a
+superblock of the hybrid family, a group of the VLM's) in the backward
+pass, as the reference's `jax.checkpoint` around its scan body, so the
+forward keeps only each layer's input and not its activations or the
+compute-dtype copies of its weights; it takes effect only where autograd
+records a parameter, so serving is untouched.  There, too, each stacked
+leaf is sliced through one `unbind` (`_slice`).
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers.attention import (AttnDims, attend_chunked,
@@ -54,7 +66,8 @@ from repro_torch.models.layers.moe import MoEDims, moe_block
 from repro_torch.models.layers.norm import layer_norm, rms_norm
 from repro_torch.models.layers.ssm import (SSMState, ssd_decode_step,
                                            ssd_forward)
-from repro_torch.models.params import init_params, padded_experts, ssm_dims
+from repro_torch.models.params import (init_params, leaves, padded_experts,
+                                       ssm_dims)
 from repro_torch.utils.hostsync import resolve_device
 
 Tree = Dict[str, Any]
@@ -76,11 +89,16 @@ class Model(torch.nn.Module):
     the reference's."""
 
     def __init__(self, cfg: ModelConfig, compute_dtype=torch.bfloat16,
-                 kv_chunk: int = 2048, device=None):
+                 kv_chunk: int = 2048, device=None, remat: bool = True,
+                 kv_int8: bool = False):
         super().__init__()
         self.cfg = cfg
         self.compute_dtype = compute_dtype
         self.kv_chunk = kv_chunk
+        self.remat = remat
+        self.kv_int8 = kv_int8
+        self._recording = self._recompute = False
+        self._unbound: Dict[int, Any] = {}
         self.device = resolve_device(device)
         self.attn_dims = AttnDims(
             n_heads=cfg.n_heads,
@@ -113,11 +131,43 @@ class Model(torch.nn.Module):
             return layer_norm(x, scale, bias)
         return rms_norm(x, scale)
 
+    def _records(self, params) -> None:
+        """Set up a forward: whether autograd records a parameter, and
+        with it whether the layer bodies are recomputed (`remat`)."""
+        self._recording = torch.is_grad_enabled() and any(
+            w.requires_grad for _, w in leaves(params))
+        self._recompute = self.remat and self._recording
+        self._unbound = {}
+
+    def _remat(self, body, x, *args):
+        """`body(x, *args)`, recomputed in the backward pass when the
+        forward records (`_records`)."""
+        if self._recompute:
+            return checkpoint(body, x, *args, use_reentrant=False)
+        return body(x, *args)
+
+    def _slice(self, w: torch.Tensor, i: tuple) -> torch.Tensor:
+        """``w[i]``.  Where autograd records the forward, a view from one
+        `unbind` of the stacked leaf (kept for the forward and its
+        recomputation), whose backward stacks the layers' gradients once;
+        each ``w[i]`` would add a zero tensor of the whole stack to the
+        leaf's gradient, layer after layer."""
+        if not (self._recording and w.requires_grad):
+            return w[i]
+        views = self._unbound.get(id(w))
+        if views is None:  # w is kept beside its views, so its id stays
+            views = self._unbound[id(w)] = (
+                w, [t.unbind(0) for t in w.unbind(0)] if len(i) == 2
+                else w.unbind(0))
+        out = views[1][i[0]]
+        return out[i[1]] if len(i) == 2 else out
+
     def _layer(self, stacked: Tree, *i: int) -> Tree:
         """Layer `i`'s leaves (views; the hybrid family's two indices,
         superblock and position), floats in the compute dtype."""
-        return {k: w[i].to(self.compute_dtype) if w.is_floating_point()
-                else w[i] for k, w in stacked.items()}
+        return {k: self._slice(w, i).to(self.compute_dtype)
+                if w.is_floating_point() else self._slice(w, i)
+                for k, w in stacked.items()}
 
     # -- sublayers -----------------------------------------------------------
 
@@ -136,20 +186,49 @@ class Model(torch.nn.Module):
         y = out.reshape(B, S, -1) @ p["wo"]
         return x + y, ((k, v) if collect_cache else None)
 
-    def _attn_decode(self, x, p, cache_k, cache_v, idx: _DecodeIndex):
+    @staticmethod
+    def _q8_kv(x):
+        """(B, 1, H, hd) -> (int8 values, (B, 1, H) bf16 scales): symmetric
+        per (token, head), quantized with the f32 scale, which is stored
+        rounded to bf16 (`torch.round` rounds half to even, as
+        `jnp.round`)."""
+        xf = x.float()
+        s = (xf.abs().amax(dim=-1) + 1e-8) / 127.0
+        q = torch.clamp(torch.round(xf / s[..., None]), -127, 127)
+        return q.to(torch.int8), s.to(torch.bfloat16)
+
+    def _attn_decode(self, x, p, cache_k, cache_v, idx: _DecodeIndex,
+                     scales=None):
         """One-token self-attention against a per-request-length cache;
-        the new K/V rows go into `cache_k`/`cache_v` in place."""
+        the new K/V rows go into `cache_k`/`cache_v` in place.  `scales`:
+        the int8 caches' (k_scale, v_scale) (B, S_max, Hkv), written in
+        place beside them."""
         B = x.shape[0]
         h = self._norm(x, p["norm"], p.get("norm_b"))
         bias = (p["bq"], p["bk"], p["bv"]) if "bq" in p else None
         q, k_new, v_new = project_qkv(h, p["wq"], p["wk"], p["wv"],
                                       self.attn_dims, idx.qpos, idx.qpos,
                                       bias)
-        cache_k.index_put_((idx.rows, idx.at), k_new[:, 0].to(cache_k.dtype))
-        cache_v.index_put_((idx.rows, idx.at), v_new[:, 0].to(cache_v.dtype))
-        out = attend_chunked(
-            q, cache_k.to(q.dtype), cache_v.to(q.dtype), self.attn_dims,
-            idx.qpos, idx.pos, kv_valid=idx.valid, kv_chunk=self.kv_chunk)
+        at = (idx.rows, idx.at)
+        if scales is not None:
+            ks, vs = scales
+            k_q, k_s = self._q8_kv(k_new)
+            v_q, v_s = self._q8_kv(v_new)
+            cache_k.index_put_(at, k_q[:, 0])
+            cache_v.index_put_(at, v_q[:, 0])
+            ks.index_put_(at, k_s[:, 0])
+            vs.index_put_(at, v_s[:, 0])
+            out = attend_chunked(
+                q, cache_k, cache_v, self.attn_dims, idx.qpos, idx.pos,
+                kv_valid=idx.valid, kv_chunk=self.kv_chunk, k_scale=ks,
+                v_scale=vs)
+        else:
+            cache_k.index_put_(at, k_new[:, 0].to(cache_k.dtype))
+            cache_v.index_put_(at, v_new[:, 0].to(cache_v.dtype))
+            out = attend_chunked(
+                q, cache_k.to(q.dtype), cache_v.to(q.dtype), self.attn_dims,
+                idx.qpos, idx.pos, kv_valid=idx.valid,
+                kv_chunk=self.kv_chunk)
         y = out.reshape(B, 1, -1) @ p["wo"]
         return x + y
 
@@ -227,23 +306,29 @@ class Model(torch.nn.Module):
         if cfg.family == "ssm":
             hs, convs = [], []
             for i in range(cfg.n_layers):
-                x, h_last, conv_tail = self._ssm_layer(
-                    x, self._layer(params["ssm"], i))
+                x, h_last, conv_tail = self._remat(
+                    lambda x, i: self._ssm_layer(
+                        x, self._layer(params["ssm"], i)), x, i)
                 hs.append(h_last)
                 convs.append(conv_tail)
             caches = ({"ssm_h": torch.stack(hs),
                        "ssm_conv": torch.stack(convs)}
                       if collect_cache else None)
             return x, caches, aux
-        ks, vs = [], []
-        for i in range(cfg.n_layers):
+
+        def body(x, i):
             x, kv = self._attn_full(x, self._layer(params["attn"], i),
                                     positions, positions, collect_cache)
             if cfg.moe:
                 x, a = self._moe_ffn(x, self._layer(params["moe"], i))
+                return x, kv, a
+            return self._ffn(x, self._layer(params["mlp"], i)), kv, None
+
+        ks, vs = [], []
+        for i in range(cfg.n_layers):
+            x, kv, a = self._remat(body, x, i)
+            if a is not None:
                 aux = aux + a
-            else:
-                x = self._ffn(x, self._layer(params["mlp"], i))
             if collect_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
@@ -258,8 +343,8 @@ class Model(torch.nn.Module):
         (ng, B, n_image_tokens, Hkv, hd)."""
         k = self.cfg.cross_attn_every
         ng = self.cfg.n_layers // k
-        ks, vs, xks, xvs = [], [], [], []
-        for g in range(ng):
+
+        def group(x, g):
             gk, gv = [], []
             for i in range(k):
                 x, kv = self._attn_full(
@@ -274,6 +359,11 @@ class Model(torch.nn.Module):
                 if collect_cache:
                     gk.append(kv[0])
                     gv.append(kv[1])
+            return x, gk, gv, ck, cv
+
+        ks, vs, xks, xvs = [], [], [], []
+        for g in range(ng):
+            x, gk, gv, ck, cv = self._remat(group, x, g)
             if collect_cache:
                 ks.append(torch.stack(gk))
                 vs.append(torch.stack(gv))
@@ -289,25 +379,33 @@ class Model(torch.nn.Module):
         B, S, _ = enc_x.shape
         positions = torch.arange(S, dtype=torch.int32,
                                  device=enc_x.device).expand(B, S)
-        x = enc_x
-        for i in range(self.cfg.n_encoder_layers):
+
+        def body(x, i):
             x, _ = self._attn_full(x, self._layer(params["enc_attn"], i),
                                    positions, positions, False,
                                    dims=self.noncausal_dims)
-            x = self._ffn(x, self._layer(params["enc_mlp"], i))
+            return self._ffn(x, self._layer(params["enc_mlp"], i))
+
+        x = enc_x
+        for i in range(self.cfg.n_encoder_layers):
+            x = self._remat(body, x, i)
         return x
 
     def _decoder_full(self, params, x, positions, enc_out, collect_cache):
         """Each decoder layer: self-attention, cross-attention to
         `enc_out`, MLP.  Caches: k/v and xk/xv (L, B, S|S_enc, Hkv, hd)."""
-        ks, vs, xks, xvs = [], [], [], []
-        for i in range(self.cfg.n_layers):
+
+        def body(x, i):
             x, kv = self._attn_full(x, self._layer(params["dec_attn"], i),
                                     positions, positions, collect_cache)
             cp = self._layer(params["dec_cross"], i)
             ck, cv = self._context_kv(cp, enc_out)
             x = self._cross_attn(x, cp, ck, cv)
-            x = self._ffn(x, self._layer(params["dec_mlp"], i))
+            return self._ffn(x, self._layer(params["dec_mlp"], i)), kv, ck, cv
+
+        ks, vs, xks, xvs = [], [], [], []
+        for i in range(self.cfg.n_layers):
+            x, kv, ck, cv = self._remat(body, x, i)
             if collect_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
@@ -333,11 +431,10 @@ class Model(torch.nn.Module):
 
     def _hybrid_stack_full(self, params, x, positions, collect_cache):
         cfg = self.cfg
-        aux = torch.zeros((), device=x.device)
-        ks, vs, hs, convs = [], [], [], []
-        for sb in range(cfg.n_layers // cfg.hybrid_period):
+
+        def superblock(x, sb):
             slot = {"ssm": 0, "moe": 0, "mlp": 0}
-            sb_h, sb_conv = [], []
+            sb_h, sb_conv, sb_aux = [], [], []
             for pos in range(cfg.hybrid_period):
                 if pos == cfg.hybrid_attn_pos:
                     x, kv = self._attn_full(
@@ -351,7 +448,15 @@ class Model(torch.nn.Module):
                     slot["ssm"] += 1
                 x, a = self._hybrid_ffn(x, params, sb, pos, slot)
                 if a is not None:
-                    aux = aux + a
+                    sb_aux.append(a)
+            return x, kv, sb_h, sb_conv, sb_aux
+
+        aux = torch.zeros((), device=x.device)
+        ks, vs, hs, convs = [], [], [], []
+        for sb in range(cfg.n_layers // cfg.hybrid_period):
+            x, kv, sb_h, sb_conv, sb_aux = self._remat(superblock, x, sb)
+            for a in sb_aux:
+                aux = aux + a
             if collect_cache:
                 ks.append(kv[0])
                 vs.append(kv[1])
@@ -400,8 +505,8 @@ class Model(torch.nn.Module):
 
     def train_logits(self, params, batch: Tree):
         """batch: tokens (B, S) [+ enc_embeds (B, S_enc, D) | image_embeds
-        (B, n_image_tokens, D)].  Returns (logits (B, S, V_pad), aux): the
-        forward pass only (training is ROADMAP queue 1 item 9)."""
+        (B, n_image_tokens, D)].  Returns (logits (B, S, V_pad), aux)."""
+        self._records(params)
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         x, _, aux = self._stack_full(params, x, self._positions(tokens),
@@ -411,6 +516,7 @@ class Model(torch.nn.Module):
     def prefill(self, params, batch: Tree):
         """Full-context forward collecting decode caches (batch as
         `train_logits`').  Returns (last_logits (B, V_pad), caches)."""
+        self._records(params)
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         x, cache, _ = self._stack_full(params, x, self._positions(tokens),
@@ -430,10 +536,10 @@ class Model(torch.nn.Module):
     def decode_step(self, params, caches: Tree, tokens, lengths):
         """One decode step.  tokens (B, 1), lengths (B,) current cache
         fill.  Writes the step's K/V and SSD states into `caches` in place
-        and returns (logits (B, V_pad), caches)."""
-        if "k_scale" in caches:
-            raise NotImplementedError(
-                "int8 KV caches: ROADMAP queue 1 item 8.4 (kv_int8)")
+        and returns (logits (B, V_pad), caches).  An int8 model
+        (`kv_int8`) of the dense or moe family decodes int8 caches (with
+        ``k_scale``/``v_scale``) as the reference does."""
+        self._records(params)
         cfg = self.cfg
         x = self._embed(params, tokens)
         if cfg.family == "ssm":
@@ -467,9 +573,13 @@ class Model(torch.nn.Module):
                                      caches["xv"][i].to(x.dtype))
                 x = self._ffn(x, self._layer(params["dec_mlp"], i))
             return self._unembed(params, x)[:, 0, :], caches
+        int8_kv = self.kv_int8 and "k_scale" in caches
         for i in range(cfg.n_layers):
-            x = self._attn_decode(x, self._layer(params["attn"], i),
-                                  caches["k"][i], caches["v"][i], idx)
+            x = self._attn_decode(
+                x, self._layer(params["attn"], i), caches["k"][i],
+                caches["v"][i], idx,
+                scales=((caches["k_scale"][i], caches["v_scale"][i])
+                        if int8_kv else None))
             if cfg.moe:
                 x, _ = self._moe_ffn(x, self._layer(params["moe"], i))
             else:
@@ -511,3 +621,21 @@ class Model(torch.nn.Module):
                         gate=params["cross"]["gate"][g])
                 x = self._ffn(x, self._layer(params["mlp"], g * k + i))
         return x
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       vocab: int) -> torch.Tensor:
+    """Mean token cross-entropy over (B, S, V_pad) logits: the pad columns
+    take -1e30 in the logits' dtype, the max and the sum of exponentials
+    are f32, and the label's logit is gathered in the logits' dtype, then
+    widened (the reference's order; not `F.cross_entropy`)."""
+    V_pad = logits.shape[-1]
+    if V_pad > vocab:
+        real = torch.arange(V_pad, device=logits.device) < vocab
+        logits = torch.where(real, logits, torch.full(
+            (), -1e30, dtype=logits.dtype, device=logits.device))
+    lf = logits.float()
+    m = torch.amax(lf, dim=-1)
+    lse = m + torch.log(torch.sum(torch.exp(lf - m[..., None]), dim=-1))
+    picked = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return torch.mean(lse - picked.float())

@@ -1,0 +1,127 @@
+"""Training loop with checkpoint/restart, straggler watchdog, preemption
+handling and failure injection: the fault-tolerance story end to end.
+
+Counterpart of src/repro/train/loop.py (`LoopConfig`, `run`).  Restart
+contract: `run()` called with the same `ckpt_dir` resumes from LATEST
+(parameters, optimizer state and the data step), so a killed job loses at
+most `ckpt_every` steps.  The parameters are f32 masters drawn from a
+`torch.Generator` seeded with `loop.seed` on `device` (the card unless the
+caller names another; the reference draws from `jax.random.key(seed)`, a
+stream PyTorch cannot reproduce); each step's batch is
+`SyntheticLMDataset.batch(step, batch_size)` moved to the device.  The
+train step updates the parameters and moments in place; a checkpoint
+copies them to the host before the next step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Dict, List, Optional
+
+import torch
+
+from repro_torch.data.loader import to_device
+from repro_torch.data.synthetic import SyntheticLMDataset
+from repro_torch.models.params import init_params
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.fault import (FailureInjector, PreemptionGuard,
+                                     StragglerWatchdog)
+from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.steps import make_train_step
+
+
+@dataclasses.dataclass
+class LoopConfig:
+    steps: int = 100
+    batch_size: int = 8
+    ckpt_every: int = 20
+    ckpt_dir: Optional[str] = None
+    async_ckpt: bool = False
+    log_every: int = 10
+    seed: int = 0
+    straggler_threshold: float = 3.0
+
+
+def run(
+    cfg,  # ModelConfig
+    loop: LoopConfig,
+    mesh=None,
+    opt_cfg: AdamWConfig = AdamWConfig(lr=1e-3),
+    injector: Optional[FailureInjector] = None,
+    data: Optional[SyntheticLMDataset] = None,
+    install_signals: bool = False,
+    device=None,
+) -> Dict[str, Any]:
+    """Train; returns the summary (losses, steps_done, resumed_from,
+    events, params, opt_state)."""
+    train_step, model = make_train_step(cfg, mesh, opt_cfg, remat=True,
+                                        device=device)
+    dev = model.device
+
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        loop.seed), dtype=torch.float32, device=dev)
+    opt_state = adamw_init(params, opt_cfg)
+    start_step = 0
+    resumed_from = None
+
+    if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
+        state = ckpt.restore(loop.ckpt_dir,
+                             {"params": params, "opt": opt_state})
+        params, opt_state = state["params"], state["opt"]
+        start_step = int(opt_state.step)
+        resumed_from = start_step
+
+    data = data or SyntheticLMDataset(vocab=cfg.vocab, seq_len=128,
+                                      seed=loop.seed)
+    watchdog = StragglerWatchdog(threshold=loop.straggler_threshold)
+    guard = PreemptionGuard(install=install_signals)
+    losses: List[float] = []
+    events: List[dict] = []
+    pending_ckpt = None
+
+    step = start_step
+    try:
+        while step < loop.steps:
+            if injector:
+                injector.maybe_fail(step)
+            batch = to_device(data.batch(step, loop.batch_size), dev)
+            t0 = time.time()
+            params, opt_state, metrics = train_step(params, opt_state, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            ev = watchdog.observe(step, dt)
+            if ev:
+                events.append({"kind": "straggler", **ev})
+            losses.append(loss)
+            step += 1
+
+            want_ckpt = loop.ckpt_dir and (
+                step % loop.ckpt_every == 0 or guard.requested
+            )
+            if want_ckpt:
+                if pending_ckpt is not None:
+                    pending_ckpt.join()
+                pending_ckpt = ckpt.save(
+                    loop.ckpt_dir,
+                    step,
+                    {"params": params, "opt": opt_state},
+                    async_write=loop.async_ckpt,
+                )
+            if guard.requested:
+                events.append({"kind": "preempted", "step": step})
+                break
+    finally:
+        if pending_ckpt is not None:
+            pending_ckpt.join()
+        if install_signals:
+            guard.restore()
+
+    return {
+        "losses": losses,
+        "steps_done": step,
+        "resumed_from": resumed_from,
+        "events": events,
+        "params": params,
+        "opt_state": opt_state,
+    }

@@ -1,7 +1,10 @@
 """The port on the card: each CUDA kernel against its plain version, the
-fused window on the card against the same window on the CPU, and the model
+fused window on the card against the same window on the CPU, the model
 path (reduced models of every family card against CPU, full-width llama3.2-3b
-and whisper-base decodes, one full-width MoE layer).
+and whisper-base decodes, one full-width MoE layer), and the int8 KV cache
+and training (reduced models' gradients, AdamW, the checkpoint drill and
+the int8 decode card against CPU, a reduced training run, a full-width
+int8 decode against bf16).
 
 Every test here is marked `gpu` and skips where there is no CUDA device.
 The file imports neither JAX nor the JAX package, so it also runs on a
@@ -1307,3 +1310,257 @@ def test_full_width_whisper_decode_on_the_card_equals_recompute():
                  (caches["v"], pre["v"])):
         assert _bf16_ulps(g, w) <= FULL_WIDTH_ULPS
     assert _bf16_ulps(zero, want) > FULL_WIDTH_ULPS
+
+
+# ---------------------------------------------------------------------------
+# the int8 KV cache and training
+# ---------------------------------------------------------------------------
+
+# card against CPU, the CPU tests' bounds (tests/test_torch_grad.py,
+# test_torch_train.py): the loss within 1e-6 relative, each gradient leaf
+# within 1e-5 of its largest |g|; the checkpoint drill's resumed losses
+# within 1e-3 relative of an uninterrupted run on the card (chip_smoke.py's
+# M3_DRILL_LOSS: the embedding's backward adds with atomics).
+GRAD_TOL = dict(loss=1e-6, leaf=1e-5)
+
+
+def _grad_run(cfg, tree_np, batch_np, device):
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.models.model import cross_entropy_loss
+    from repro_torch.models.params import leaves
+    from repro_torch.models.registry import build_model
+
+    model = build_model(cfg, compute_dtype=torch.float32, device=device)
+    params = params_from_numpy(tree_np, cfg, device=device,
+                               dtype=torch.float32)
+    flat = [w.requires_grad_(True) for _, w in leaves(params)]
+    batch = {k: torch.as_tensor(v, device=device)
+             for k, v in batch_np.items()}
+    logits, aux = model.train_logits(params, batch)
+    total = cross_entropy_loss(logits, batch["labels"], cfg.vocab) + 0.01 * aux
+    grads = torch.autograd.grad(total, flat)
+    return float(total.detach()), [g.cpu() for g in grads]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "granite-moe-1b-a400m",
+                                  "mamba2-780m"])
+def test_reduced_grads_on_the_card_equal_the_cpu(arch):
+    """`chip_smoke.py` M3 in small form: the training loss and every
+    gradient leaf of a reduced model, f32 with TF32 off, from one numpy
+    tree (norms redrawn nonzero), card against CPU."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.models.params import init_params
+
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced_config(arch)
+    tree_np = params_to_numpy(_redraw_nonzero(init_params(
+        cfg, torch.Generator().manual_seed(3), dtype=torch.float32,
+        device="cpu"), torch.Generator().manual_seed(5)))
+    S = 2 * cfg.ssm.chunk if cfg.ssm else 16
+    tok = np.random.default_rng(4).integers(0, cfg.vocab, (2, S + 1))
+    batch = {"tokens": tok[:, :-1].astype(np.int32),
+             "labels": tok[:, 1:].astype(np.int32)}
+    (lg, gg), (lc, gc) = (_grad_run(cfg, tree_np, batch, d)
+                          for d in (dev, "cpu"))
+    assert abs(lg - lc) <= GRAD_TOL["loss"] * abs(lc)
+    for a, b in zip(gg, gc):
+        assert float((a - b).abs().max()) <= GRAD_TOL["leaf"] * float(
+            b.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("state_dtype", ["fp32", "bf16", "int8"])
+def test_adamw_on_the_card_equals_the_cpu(state_dtype):
+    """One `adamw_update` on the card and on the CPU from the same numpy
+    parameters and gradients: f32 leaves within 2 f32 ulps of the leaf's
+    largest value, bf16 moments within 2 bf16 ulps, int8 payloads within 2
+    quanta.  (The clip's scale comes from a sum of squares that the card
+    reduces in another order, an ulp apart at some steps, so each further
+    step may add an ulp.)"""
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             adamw_update, tree_leaves)
+
+    dev = _card()
+    rng = np.random.default_rng(1)
+    p_np = {"stack": rng.standard_normal((2, 4, 512)).astype(np.float32),
+            "norm": rng.standard_normal((256,)).astype(np.float32),
+            "tiny": rng.standard_normal((3,)).astype(np.float32)}
+    g_np = [{k: (3 * rng.standard_normal(v.shape)).astype(np.float32)
+             for k, v in p_np.items()}]
+    cfg = AdamWConfig(lr=1e-2, state_dtype=state_dtype)
+    runs = []
+    for d in (dev, "cpu"):
+        p = {k: torch.as_tensor(v, device=d) for k, v in p_np.items()}
+        st = adamw_init(p, cfg)
+        for g in g_np:
+            p, st = adamw_update(p, {k: torch.as_tensor(v, device=d)
+                                     for k, v in g.items()}, st, cfg)
+        runs.append([t.cpu() for e in tree_leaves(
+            {"p": p, "m": st.m, "v": st.v})
+            for t in (e if isinstance(e, tuple) else (e,))])
+    for a, b in zip(*runs):
+        assert a.dtype == b.dtype
+        diff = float((a.float() - b.float()).abs().max())
+        top = float(b.float().abs().max())
+        if b.dtype == torch.int8:
+            assert diff <= 2
+        elif b.dtype == torch.bfloat16:
+            assert diff <= 2 * 2.0 ** (np.floor(np.log2(top)) - 7)
+        else:
+            assert diff <= 2 * float(np.spacing(np.float32(top)))
+
+
+@pytest.mark.gpu
+def test_checkpoint_drill_on_the_card(tmp_path):
+    """tests/test_train.py's failure injection on the card (reduced
+    gemma-2b): the step-10 checkpoint restores bit-equal to the state the
+    loop saved, the resumed run finishes at 20 with losses close to an
+    uninterrupted run's, and its checkpoint reads back on the CPU."""
+    import repro_torch.train.loop as TL
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.params import init_params
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.fault import FailureInjector
+    from repro_torch.train.optimizer import (AdamWConfig, adamw_init,
+                                             tree_leaves)
+
+    dev = _card()
+    cfg = reduced_config("gemma-2b")
+    loop = TL.LoopConfig(steps=20, batch_size=2, ckpt_every=5,
+                         ckpt_dir=str(tmp_path))
+    saved, save = {}, ckpt.save
+
+    def keep(d, step, tree, **kw):
+        saved[step] = ckpt._host_copy(tree)
+        return save(d, step, tree, **kw)
+
+    ckpt.save = keep
+    try:
+        with pytest.raises(RuntimeError, match="injected failure"):
+            TL.run(cfg, loop, injector=FailureInjector(fail_at=(12,)),
+                   device=dev)
+    finally:
+        ckpt.save = save
+    assert ckpt.latest_step(tmp_path) == 10
+
+    def state_like(d):
+        p = init_params(cfg, dtype=torch.float32, device=d)
+        return {"params": p, "opt": adamw_init(p, AdamWConfig())}
+
+    def flat(tree):
+        return [t for e in tree_leaves({"p": tree["params"],
+                                        "m": tree["opt"].m,
+                                        "v": tree["opt"].v})
+                for t in (e if isinstance(e, tuple) else (e,))] + [
+            tree["opt"].step]
+
+    for a, b in zip(flat(ckpt.restore(tmp_path, state_like(dev))),
+                    flat(saved[10])):
+        assert a.device.type == "cuda" and torch.equal(a.cpu(), b)
+    res = TL.run(cfg, loop, device=dev)
+    assert res["resumed_from"] == 10 and res["steps_done"] == 20
+    whole = TL.run(cfg, TL.LoopConfig(steps=20, batch_size=2), device=dev)
+    for a, b in zip(res["losses"], whole["losses"][10:]):
+        assert abs(a - b) <= 1e-3 * abs(b)
+    final = {"params": res["params"], "opt": res["opt_state"]}
+    for a, b in zip(flat(ckpt.restore(tmp_path, state_like("cpu"))),
+                    flat(final)):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_reduced_int8_decode_on_the_card_equals_the_cpu(dtype):
+    """8 int8 decode steps of reduced llama3.2-3b from one numpy tree, card
+    against CPU: logits within the bf16 bound (2 ulps) in f32 too, payloads
+    within 2 quanta (chip_smoke.py's M3: a K/V value card and CPU round an
+    f32 ulp apart can land on either side of a quantum's half)."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import init_params
+    from repro_torch.models.registry import build_model
+
+    dev = _card()
+    assert not torch.backends.cuda.matmul.allow_tf32
+    cfg = reduced_config("llama3.2-3b")
+    td = torch.float32 if dtype == "f32" else torch.bfloat16
+    tree_np = params_to_numpy(init_params(
+        cfg, torch.Generator().manual_seed(7), dtype=torch.float32,
+        device="cpu"))
+    tok = np.random.default_rng(8).integers(0, cfg.vocab, (2, 8)).astype(
+        np.int32)
+    runs = []
+    for d in (dev, "cpu"):
+        m = build_model(cfg, compute_dtype=td, kv_int8=True, device=d)
+        p = params_from_numpy(tree_np, cfg, device=d, dtype=td)
+        caches = init_caches(cfg, 2, 16, dtype=td, kv_int8=True, device=d)
+        logits = [m.decode_step(p, caches, torch.as_tensor(
+            tok[:, t:t + 1], device=d), torch.full(
+            (2,), t, dtype=torch.int32, device=d))[0].cpu()
+            for t in range(8)]
+        runs.append((logits, {k: v.cpu() for k, v in caches.items()}))
+    (lg, cg), (lc, cc) = runs
+    for a, b in zip(lg, lc):
+        assert _bf16_ulps(a, b) <= 2
+    for k in ("k", "v"):
+        assert cg[k].dtype == torch.int8
+        assert int((cg[k].int() - cc[k].int()).abs().max()) <= 2
+
+
+@pytest.mark.gpu
+def test_reduced_training_loss_falls_on_the_card():
+    """`chip_smoke.py` M2 in small form: reduced llama3.2-3b trained by the
+    loop on the card (f32 masters, bf16 compute, int8 first moments) on
+    the launcher's bigram task; the losses finite and falling."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.train.loop import LoopConfig, run
+    from repro_torch.train.optimizer import AdamWConfig
+
+    dev = _card()
+    cfg = reduced_config("llama3.2-3b")
+    res = run(cfg, LoopConfig(steps=20, batch_size=4),
+              opt_cfg=AdamWConfig(lr=1e-3, state_dtype="int8"),
+              data=SyntheticLMDataset(cfg.vocab, 64, fixed_map=True),
+              device=dev)
+    losses = res["losses"]
+    assert all(np.isfinite(losses))
+    assert np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.1
+    assert res["params"]["embed"].device.type == "cuda"
+
+
+@pytest.mark.gpu
+def test_full_width_int8_decode_tracks_bf16():
+    """`chip_smoke.py` M1 in small form: llama3.2-3b at full width in bf16,
+    one prompt of 8 tokens teacher-forced through int8 and bf16 caches:
+    the softmaxes within 0.05 (the reference test's bar), and the int8
+    logits within 15 % of the step's largest |logit| from the bf16 ones
+    (M1_LOGIT_REL: random weights amplify the quantization noise through
+    28 layers and leave the top logits about 0.2 apart, so the greedy
+    token is a near tie that rounding alone can move)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.registry import build_model
+
+    dev = _card()
+    cfg = get_config("llama3.2-3b")
+    mb = build_model(cfg, device=dev)
+    m8 = build_model(cfg, kv_int8=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = mb.init(gen)
+    tok = torch.randint(0, cfg.vocab, (1, 8), device=dev, dtype=torch.int32,
+                        generator=gen)
+    cb = init_caches(cfg, 1, 64, device=dev)
+    c8 = init_caches(cfg, 1, 64, kv_int8=True, device=dev)
+    for t in range(8):
+        lengths = torch.full((1,), t, dtype=torch.int32, device=dev)
+        lb, _ = mb.decode_step(params, cb, tok[:, t:t + 1], lengths)
+        li, _ = m8.decode_step(params, c8, tok[:, t:t + 1], lengths)
+        lb, li = lb.float(), li.float()
+        gap = (lb.softmax(-1) - li.softmax(-1)).abs().max()
+        assert float(gap) < 0.05
+        assert float((li - lb).abs().max() / lb.abs().max()) <= 0.15

@@ -164,6 +164,53 @@ def test_model_path_runs_on_the_card_by_default():
         assert "6/6 requests" in out.stdout
 
 
+def test_training_path_loads_no_jax_and_runs_on_the_card_by_default():
+    """`repro_torch.train`, `repro_torch.data` and `repro_torch.launch.train`
+    load neither jax nor the JAX package; the train, eval, prefill and
+    serve steps and the loop go to the card unless the caller names
+    another device, and raise without one; `python -m
+    repro_torch.launch.train` with no --device refuses to run without a
+    card rather than fall back to the CPU."""
+    code = (
+        "import sys\n"
+        "import repro_torch.train, repro_torch.train.loop, "
+        "repro_torch.train.checkpoint, repro_torch.data, "
+        "repro_torch.launch.train\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'repro')]\n"
+        "print(len(bad), bad[:5])\n"
+    )
+    out = _python(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.train.loop import LoopConfig, run
+    from repro_torch.train.steps import (make_eval_step, make_prefill_step,
+                                         make_serve_step, make_train_step)
+
+    cfg = reduced_config("llama3.2-3b")
+    argv = ["-m", "repro_torch.launch.train", "--arch", "llama3.2-3b",
+            "--reduced", "--steps", "2", "--batch", "2", "--seq", "16"]
+    makers = (make_train_step, make_eval_step, make_prefill_step,
+              make_serve_step)
+    if torch.cuda.is_available():
+        for make in makers:
+            assert make(cfg)[1].device.type == "cuda"
+        out = _python(argv, timeout=300)
+        assert out.returncode == 0, out.stderr
+        assert "steps=2" in out.stdout
+        return
+    for make in makers:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(cfg, LoopConfig(steps=1, batch_size=1))
+    out = _python(argv)
+    assert out.returncode != 0
+    assert "no CUDA device" in out.stderr
+    assert "[train]" not in out.stdout
+
+
 def test_worker_and_supervisor_run_on_the_card_by_default(tmp_path):
     """`python -m repro_torch.serve.worker` with no --device runs on the
     card: without one it refuses, and the supervisor's circuit breaker

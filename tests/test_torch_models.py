@@ -624,11 +624,25 @@ def test_decode_continues_prefill_like_recompute():
 
 
 def test_kv_int8_raises_until_its_slice():
+    """The int8 KV cache's slice has landed: `build_model(kv_int8=True)`
+    builds, and its decode on int8 caches (written in place with their
+    bf16 scales) gives the bf16 decode's greedy tokens over a rollout
+    (tests/test_kernel_integration.py's check; the parity with the
+    reference's int8 decode is tests/test_torch_kv_int8.py's)."""
     cfg = reduced_config("llama3.2-3b")
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        build_model(cfg, kv_int8=True, device="cpu")
-    tm = build_model(cfg, device="cpu")
-    caches = init_caches(cfg, 1, 8, kv_int8=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8.4"):
-        tm.decode_step(tm.init(), caches, torch.ones((1, 1), dtype=torch.int32),
-                       torch.zeros(1, dtype=torch.int32))
+    m8 = build_model(cfg, kv_int8=True, device="cpu")
+    mb = build_model(cfg, device="cpu")
+    assert m8.kv_int8 and not mb.kv_int8
+    params = mb.init(torch.Generator().manual_seed(0))
+    c8 = init_caches(cfg, 2, 16, kv_int8=True, device="cpu")
+    cb = init_caches(cfg, 2, 16, device="cpu")
+    tok = torch.full((2, 1), 7, dtype=torch.int32)
+    for t in range(6):
+        lengths = torch.full((2,), t, dtype=torch.int32)
+        lb, _ = mb.decode_step(params, cb, tok, lengths)
+        li, c8_ = m8.decode_step(params, c8, tok, lengths)
+        assert c8_ is c8 and c8["k"].dtype == torch.int8
+        assert c8["k_scale"].dtype == torch.bfloat16
+        assert bool(c8["k_scale"][:, :, t].gt(0).all())
+        assert torch.equal(lb.argmax(-1), li.argmax(-1)), t
+        tok = lb.argmax(-1).to(torch.int32)[:, None]

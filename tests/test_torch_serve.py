@@ -440,10 +440,12 @@ def test_engine_run_matches_jax(tree, K):
 def test_engine_refuses_what_is_not_ported(tree, tmp_path):
     """A model config of every family builds (its bf16 K/V caches of
     batch_size x max_seq, its f32 SSD states, the enc-dec and VLM
-    families' cross K/V) and serves; the int8 KV cache, not ported yet,
-    raises, naming its ROADMAP item, instead of running something else;
-    the durable engine (`durable_dir`), ported since, runs and reports its
-    store in `health()`."""
+    families' cross K/V) and serves; the int8 KV cache, ported since,
+    builds; what waits for the sharding slice (a checkpoint restored onto
+    a mesh, a train step over one) raises, naming its ROADMAP item,
+    instead of running something else; the durable engine
+    (`durable_dir`), ported since, runs and reports its store in
+    `health()`."""
     cfg = reduced_config(MODEL_ARCH)
     eng = ServeEngine(cfg, init_params(cfg, device="cpu"),
                       EngineConfig(batch_size=2, max_seq=8), device="cpu",
@@ -468,9 +470,20 @@ def test_engine_refuses_what_is_not_ported(tree, tmp_path):
                                            else torch.bfloat16), (arch, k)
         assert eng.run([[Request(uid=0, prompt_len=4, max_new_tokens=3)]],
                        max_steps=20)["completed"] == 1, arch
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP queue 1 item 8.4"):
-        TMR.build_model(cfg, kv_int8=True, device="cpu")
+    # the int8 KV cache (item 8.4) is ported now; what the sharding slice
+    # brings is still refused, naming its item
+    assert TMR.build_model(cfg, kv_int8=True, device="cpu").kv_int8
+    from repro_torch.distributed import make_mesh
+    from repro_torch.train import checkpoint
+    from repro_torch.train.steps import make_train_step
+
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8.5"):
+        checkpoint.restore(tmp_path, {"w": torch.zeros(2)},
+                           shardings={"w": None})
+    with make_mesh((1, 1), ("pod", "shard"), device="cpu") as mesh:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item 8.5"):
+            make_train_step(cfg, mesh, device="cpu")
     eng = ServeEngine(None, None, EngineConfig(
         batch_size=4, sched_window=4, durable_dir=str(tmp_path / "d")),
         device="cpu", tree=tree)
