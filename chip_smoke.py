@@ -161,7 +161,32 @@ non-zero before its last line):
               prefix and `xk`/`xv`; device µs by range: self-attention
               decode, cross-attention, MLP, unembedding); L4 the reduced
               models as J4, with a context;
-  16. the total time; then the kernels JSON line, the card line, and the
+  16. path M  the int8 KV cache and training: M1 llama3.2-3b decoding on
+              int8 and bf16 caches, M2 llama3.2-3b trained at full width
+              (f32 masters, bf16 compute, remat, int8 first moments), M3
+              the reduced models' gradients, AdamW, the checkpoint drill
+              and int8 decode card against CPU;
+  17. path N  the sharding slice (ZeRO-3 + tensor parallel over a `Mesh`),
+              every rank a process on the one card over gloo with
+              host-staged payloads: N1 llama3.2-3b served at full width
+              on a (data=1, model=4) mesh (`tp_only_params`) on the
+              launcher's workload at 8 slots, max_seq 512, every rank's
+              dispatch stream equal to the one-rank engine's, the decode
+              logits within `N1_ULPS` bf16 ulps of the one-rank engine's on
+              the same parameters (carried across with
+              `elastic.reshard_state`) while the greedy tokens agree, the
+              agreeing tokens counted; ms a tick, the decode step's ms,
+              collectives a step by (kind, axes); N2 llama3.2-3b trained
+              at full width on a (data=2, model=2) mesh (ZeRO-3 + TP, M2's
+              task): the first loss within 1e-3 relative and the global
+              gradient norm within 1e-2 of the one-rank step's, losses
+              finite and falling, ms a step, peak allocated per rank,
+              collective bytes a step; N3 reduced models of the six
+              families on a (2, 2) mesh on the card against the same ranks
+              on the CPU (`train_logits`, one train step, one decode step)
+              and the (2, 2) checkpoint restored on one rank bit-equal to
+              the gathered live state;
+  18. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -177,7 +202,9 @@ I2's eight rank processes, each counted from 0 just before its steps; on
 path J an engine tick does, and its launches are those of J3's engine
 runs (the model itself launches no hand kernel); on paths K and L
 likewise, K1's and K2's (L1's and L2's) engine runs each counted from 0
-just before it.
+just before it; on path N an engine tick does, and its launches are those
+of N1's four rank processes' sharded engine runs, each counted from 0 just
+before it (N2 and N3 launch no hand kernel).
 `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/, path H's stores to build/chip_smoke/durable/.  The
@@ -592,6 +619,7 @@ PATH_KERNELS = {
     "K": ("windowed_merge", "topk_smallest", "elim_sort"),
     "L": ("windowed_merge", "topk_smallest", "elim_sort"),
     "M": (),  # training has no hand kernel
+    "N": ("topk_smallest", "elim_sort"),  # N1's ticks merge no head
 }
 PREFILL_BATCH = 4096
 # Kernel launches inside `run_window` calls only (prefills excluded), per
@@ -4099,6 +4127,7 @@ def path_m2(c=PATH_M, device="cuda"):
         targets = [(model, "train_logits", M_LABELS["forward"]),
                    (TS, "cross_entropy_loss", M_LABELS["loss"]),
                    (torch.autograd, "grad", M_LABELS["backward"]),
+                   (TS, "grad_norm", M_LABELS["optimizer"]),
                    (TS, "adamw_update", M_LABELS["optimizer"])]
         with labelled(targets), prof:
             for _ in range(2):
@@ -4368,6 +4397,600 @@ def path_m(c=PATH_M, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# path N: the sharding slice (ZeRO-3 + tensor parallel over a Mesh)
+# ---------------------------------------------------------------------------
+
+PATH_N = dict(arch="llama3.2-3b", seed=0, serve_mesh=(1, 4), batch_size=8,
+              max_seq=512, requests=24, burst=6, ticks=24, logit_ticks=6,
+              train_mesh=(2, 2), batch=2, seq_len=1024, lr=1e-3,
+              state_dtype="int8", steps=2,
+              small=("llama3.2-3b", "granite-moe-1b-a400m", "mamba2-780m",
+                     "jamba-1.5-large-398b", "whisper-base",
+                     "llama-3.2-vision-11b"),
+              spawn_timeout=900)
+# N1's bound: the sharded decode's logits against the one-rank engine's in
+# bf16 ulps of the largest (J2's bound): the ranks add the row-parallel
+# partial sums and the spread softmax in another order.
+N1_ULPS = 16
+# N2's bounds against the one-rank step on the same parameters and batch.
+N2_LOSS_REL, N2_GNORM_REL = 1e-3, 1e-2
+# N3's bounds, the CPU tests' (tests/test_torch_sharded_model.py): f32, the
+# loss within 1e-6 relative and the gradient norm within 1e-5, each leaf's
+# change in one AdamW step within 1e-2 of the CPU's change in norm (the
+# first step moves every element by about lr whatever its gradient, so the
+# parameters after it would hide a skipped or misscaled update); the
+# logits, card against CPU, within J4's f32 bound
+# (tests/test_torch_models.py's, 5e-5 absolute): cuBLAS and the CPU's BLAS
+# round apart at every layer (the VLM's decode logits came 1.07e-5 of the
+# largest apart on an H100).
+N3_LOSS_REL, N3_DELTA_REL = 1e-6, 1e-2
+N3_GNORM_REL = 1e-5
+
+
+def _mesh_counts(mesh, what="counts"):
+    return {f"{k}[{','.join(a)}]": n
+            for (k, a), n in sorted(getattr(mesh, what).items())}
+
+
+def n1_rank(mesh, c, dtree):
+    """One rank of N1: the one-rank tree drawn from the seed (rank 0 runs
+    the one-rank engine on it first), carried onto the mesh with
+    `elastic.reshard_state`, and the sharded engine's run on the
+    launcher's workload; the first `logit_ticks` decode steps' logits
+    gathered whole."""
+    import torch
+
+    from repro_torch.distributed.sharding import (P, ShardingRules,
+                                                  gather_full, tp_only_params)
+    from repro_torch.kernels import ops as KO
+    from repro_torch.launch.serve import workload
+    from repro_torch.models.registry import build_model
+    from repro_torch.serve import EngineConfig, ServeEngine
+    from repro_torch.train.elastic import reshard_state, shardings_for
+
+    dev = mesh.device
+    cfg = _n_config(c)
+    ecfg = EngineConfig(batch_size=c["batch_size"], max_seq=c["max_seq"])
+    full = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(c["seed"]))
+    out = {"transport": mesh.transport}
+
+    def logged(eng, gather):
+        stream, caps, step_s = [], [], []
+        tick, dec = eng.scheduler.tick, eng._decode
+
+        def t(arrivals, n_dispatch):
+            d = tick(arrivals, n_dispatch=n_dispatch)
+            stream.append([r.uid for r in d])
+            return d
+
+        def d(p, caches, tokens, lengths):
+            _sync(dev)
+            t0 = time.perf_counter()
+            lg, caches = dec(p, caches, tokens, lengths)
+            _sync(dev)
+            step_s.append(time.perf_counter() - t0)
+            if len(caps) < c["logit_ticks"]:
+                caps.append(gather(lg).float().cpu())
+                if len(caps) == c["logit_ticks"]:
+                    mesh.reset_counts()  # the steps after the captures
+            return lg, caches
+
+        eng.scheduler.tick, eng._decode = t, d
+        return stream, caps, step_s
+
+    if mesh.rank == 0:
+        one = ServeEngine(cfg, full, ecfg, device=dev, seed=0, tree=dtree)
+        stream, caps, step_s = logged(one, lambda lg: lg)
+        t0 = time.perf_counter()
+        res = one.run(workload(c["requests"], c["burst"]),
+                      max_steps=c["ticks"])
+        out["one"] = {"stream": stream, "logits": caps, "outputs":
+                      one.outputs, "completed": res["completed"],
+                      "wall_s": time.perf_counter() - t0,
+                      "ticks": len(step_s), "step_s": step_s}
+        del one
+    eng = ServeEngine(cfg, None, ecfg, mesh=mesh,
+                      rules=tp_only_params(ShardingRules()), seed=0,
+                      tree=dtree)
+    eng.params = reshard_state(full, shardings_for(mesh, eng.model.specs))
+    del full
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    stream, caps, step_s = logged(
+        eng, lambda lg: gather_full(lg, mesh, P(None, "model")))
+    KO.reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run(workload(c["requests"], c["burst"]), max_steps=c["ticks"])
+    _sync(dev)
+    out |= {"stream": stream, "logits": caps, "outputs": eng.outputs,
+            "completed": res["completed"], "ticks": len(step_s),
+            "wall_s": time.perf_counter() - t0, "step_s": step_s,
+            "counts": _mesh_counts(mesh), "bytes": _mesh_counts(mesh, "bytes"),
+            "counted_steps": len(step_s) - c["logit_ticks"],
+            "launches": dict(KO.LAUNCHES),
+            "peak": _peak(dev)}
+    return out
+
+
+def path_n1(tree, c=PATH_N, device="cuda"):
+    """N1: sharded serving at full width.  Returns the ranks' launches
+    (summed) and the ticks run."""
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed import spawn
+
+    t0 = time.perf_counter()
+    ranks = spawn(n1_rank, c["serve_mesh"], ("data", "model"), device=device,
+                  backend="gloo", args=(c, tree), timeout=c["spawn_timeout"])
+    wall = time.perf_counter() - t0
+    one = ranks[0]["one"]
+    for r, g in enumerate(ranks):
+        if g["stream"] != one["stream"]:
+            raise AssertionError(f"path N1: rank {r}'s dispatch stream is not "
+                                 f"the one-rank engine's")
+        if g["completed"] < 1 or g["outputs"] != ranks[0]["outputs"]:
+            raise AssertionError(f"path N1: rank {r}'s outputs differ from "
+                                 f"rank 0's")
+    got, want = ranks[0]["logits"], one["logits"]
+    compared, worst = 0, 0.0
+    for t, (a, b) in enumerate(zip(got, want)):
+        if not np.isfinite(a).all():
+            raise AssertionError(f"path N1: logits not finite at tick {t}")
+        worst = max(worst, _bf16_ulps(torch.as_tensor(a), torch.as_tensor(b)))
+        compared += 1
+        if not np.array_equal(a.argmax(-1), b.argmax(-1)):
+            break  # the engines' inputs part here
+    if worst > N1_ULPS:
+        raise AssertionError(f"path N1: decode logits {worst:.2f} bf16 ulps "
+                             f"from the one-rank engine's (bound {N1_ULPS})")
+    agree = total = 0
+    for uid, toks in one["outputs"].items():
+        mine = ranks[0]["outputs"].get(uid, [])
+        total += len(toks)
+        agree += sum(a == b for a, b in zip(toks, mine))
+    steps = ranks[0]["counted_steps"]
+    per = {k: n / steps for k, n in ranks[0]["counts"].items()}
+    per_b = {k: n / steps for k, n in ranks[0]["bytes"].items()}
+    med = float(np.median(ranks[0]["step_s"][c["logit_ticks"]:])) * 1e3
+    med1 = float(np.median(one["step_s"])) * 1e3
+    where = "one card" if torch.device(device).type == "cuda" else "the CPU"
+    log(f"[17 path N1] {c['arch']} bf16 on a {c['serve_mesh']} (data, "
+        f"model) mesh of {len(ranks)} rank processes on {where}, "
+        f"{ranks[0]['transport']}, tp_only_params: {one['completed']} and "
+        f"{ranks[0]['completed']} requests completed in {one['ticks']} and "
+        f"{ranks[0]['ticks']} ticks (at most {c['ticks']}) by the one-rank "
+        f"and the sharded engine, every rank's dispatch "
+        f"stream equal to the one-rank engine's "
+        f"({sum(map(len, one['stream']))} dispatches); decode logits of "
+        f"the first {compared} ticks within {worst:.2f} bf16 ulps of the "
+        f"largest (bound {N1_ULPS}); greedy tokens agreeing {agree} of "
+        f"{total} | sharded: {ranks[0]['wall_s'] * 1e3 / ranks[0]['ticks']:.1f}"
+        f" ms a tick, decode step {med:.1f} ms median (one-rank: "
+        f"{one['wall_s'] * 1e3 / one['ticks']:.1f} ms a tick, decode step "
+        f"{med1:.2f} ms); peak allocated a rank "
+        f"{max(g['peak'] for g in ranks):,} bytes; wall {wall:.1f}s")
+    log("[17 path N1] collectives a decode step (rank 0, over "
+        f"{steps} steps): " + "; ".join(
+            f"{k} x{n:.1f} ({per_b[k]:,.0f} bytes)" for k, n in per.items()))
+    launches = {k: sum(g["launches"].get(k, 0) for g in ranks)
+                for k in ranks[0]["launches"]}
+    return launches, ranks[0]["ticks"]
+
+
+def n2_rank(mesh, c):
+    """One rank of N2: llama3.2-3b's training state drawn from the seed,
+    this rank's blocks kept (ZeRO-3 + TP), M2's batch's rows, `steps`
+    train steps timed."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.loader import place
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models.params import init_params
+    from repro_torch.train.elastic import shardings_for
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import batch_spec_tree, make_train_step
+
+    dev = mesh.device
+    cfg = _n_config(c)
+    opt_cfg = AdamWConfig(lr=c["lr"], state_dtype=c["state_dtype"])
+    step, model = make_train_step(cfg, mesh, opt_cfg, remat=True, device=dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        c["seed"]), dtype=torch.float32, device=dev,
+        model_axis=model.model_axis_size, mesh=mesh, specs=model.specs)
+    opt = adamw_init(params, opt_cfg, mesh, model.specs)
+    data = SyntheticLMDataset(cfg.vocab, seq_len=c["seq_len"],
+                              fixed_map=True, seed=c["seed"])
+    batch = place(data.batch(0, c["batch"]), shardings_for(
+        mesh, batch_spec_tree(cfg, ShapeConfig(
+            "n2", c["seq_len"], c["batch"], "train"), model.rules, mesh)))
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "gnorms": [], "ms": [], "counts": [], "bytes": []}
+    for _ in range(c["steps"]):
+        mesh.reset_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        _sync(dev)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["losses"].append(float(m["loss"]))
+        out["gnorms"].append(float(m["grad_norm"]))
+        out["counts"].append(_mesh_counts(mesh))
+        out["bytes"].append(_mesh_counts(mesh, "bytes"))
+    out["peak"] = _peak(dev)
+    out["local_bytes"] = sum(t.numel() * t.element_size()
+                             for t in _tensors((params, opt)))
+    return out
+
+
+def _free(dev):
+    """Drop what the parent no longer holds from the card's cache, so the
+    rank processes find the memory."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _n_config(c):
+    from repro_torch.configs.registry import get_config, reduced_config
+
+    return (reduced_config if c.get("reduced") else get_config)(c["arch"])
+
+
+def _peak(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
+
+
+def _tensors(tree):
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensors(x)]
+    return []
+
+
+def path_n2(c=PATH_N, device="cuda"):
+    """N2: sharded training at full width against the one-rank step."""
+    import torch
+
+    import repro_torch.train.steps as TS
+    from repro_torch.data.loader import to_device
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.distributed import spawn
+    from repro_torch.models.params import init_params
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+
+    dev = torch.device(device)
+    cfg = _n_config(c)
+    t0 = time.perf_counter()
+    ranks = spawn(n2_rank, c["train_mesh"], ("data", "model"), device=device,
+                  backend="gloo", args=(c,), timeout=c["spawn_timeout"])
+    wall = time.perf_counter() - t0
+    # the one-rank step after the ranks have gone: the card holds one or
+    # the other (about 40 GB here, 43 GB for the four ranks)
+    opt_cfg = AdamWConfig(lr=c["lr"], state_dtype=c["state_dtype"])
+    step, _ = TS.make_train_step(cfg, None, opt_cfg, remat=True, device=dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(
+        c["seed"]), dtype=torch.float32, device=dev)
+    opt = adamw_init(params, opt_cfg)
+    data = SyntheticLMDataset(cfg.vocab, seq_len=c["seq_len"],
+                              fixed_map=True, seed=c["seed"])
+    params, opt, m = step(params, opt,
+                          to_device(data.batch(0, c["batch"]), dev))
+    ref_loss, ref_gnorm = float(m["loss"]), float(m["grad_norm"])
+    del step, params, opt, m
+    _free(dev)
+    losses, gnorms = ranks[0]["losses"], ranks[0]["gnorms"]
+    for r, g in enumerate(ranks):
+        if g["losses"] != losses:
+            raise AssertionError(f"path N2: rank {r}'s losses {g['losses']} "
+                                 f"are not rank 0's {losses}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] >= losses[0]:
+        raise AssertionError(f"path N2: losses {losses} not finite or not "
+                             f"falling")
+    if abs(losses[0] - ref_loss) > N2_LOSS_REL * abs(ref_loss):
+        raise AssertionError(f"path N2: first loss {losses[0]} against the "
+                             f"one-rank step's {ref_loss}")
+    if abs(gnorms[0] - ref_gnorm) > N2_GNORM_REL * abs(ref_gnorm):
+        raise AssertionError(f"path N2: gradient norm {gnorms[0]} against "
+                             f"the one-rank step's {ref_gnorm}")
+    last = ranks[0]["bytes"][-1]
+    where = "one card" if dev.type == "cuda" else "the CPU"
+    log(f"[17 path N2] {c['arch']} trained on a {c['train_mesh']} (data, "
+        f"model) mesh of {len(ranks)} rank processes on {where} over gloo, "
+        f"ZeRO-3 + TP, batch {c['batch']} x {c['seq_len']}, f32 masters, "
+        f"bf16 compute, remat, AdamW lr {c['lr']} with {c['state_dtype']} "
+        f"first moments: losses {', '.join(f'{x:.6f}' for x in losses)} "
+        f"(one-rank first step {ref_loss:.6f}, relative "
+        f"{abs(losses[0] - ref_loss) / ref_loss:.2e}); global gradient norm "
+        f"{gnorms[0]:.6f} (one-rank {ref_gnorm:.6f}, relative "
+        f"{abs(gnorms[0] - ref_gnorm) / ref_gnorm:.2e}) | ms a step "
+        f"{', '.join(f'{x:.1f}' for x in ranks[0]['ms'])}; peak allocated "
+        f"a rank {', '.join(f'{g['peak']:,}' for g in ranks)} bytes "
+        f"(training state a rank {ranks[0]['local_bytes']:,} bytes); "
+        f"collective payload bytes a step (rank 0) "
+        f"{sum(last.values()):,}; wall {wall:.1f}s")
+    log("[17 path N2] collectives of the last step (rank 0): " + "; ".join(
+        f"{k} x{n} ({last[k]:,} bytes)"
+        for k, n in ranks[0]["counts"][-1].items()))
+    return c["steps"]
+
+
+def _n3_tree(arch, seed=1):
+    """The reduced f32 init tree of `arch` (the port's, from a seeded CPU
+    generator) with norms, biases and gates redrawn nonzero, as numpy."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.params import init_params, leaves
+
+    params = init_params(reduced_config(arch), torch.Generator().manual_seed(
+        seed), torch.float32, "cpu")
+    rng = np.random.default_rng(seed)
+    tree = {}
+    for path, a in leaves(params):
+        name = path.split("/")[-1]
+        a = a.numpy()
+        if name.startswith(("b", "norm", "final_norm")) or name in (
+                "conv_b", "dt_bias", "gate"):
+            a = ((1.0 if name == "gate" else 0.1)
+                 * rng.standard_normal(a.shape)).astype(np.float32)
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = a
+    return tree
+
+
+def _n3_batch(arch, B=2, seed=1):
+    import numpy as np
+
+    from repro_torch.configs.registry import reduced_config
+
+    cfg = reduced_config(arch)
+    rng = np.random.default_rng(seed)
+    S = 2 * cfg.ssm.chunk if cfg.ssm else 16
+    tok = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    if cfg.family == "encdec":
+        batch["enc_embeds"] = rng.standard_normal(
+            (B, 24, cfg.d_model)).astype(np.float32)
+    if cfg.family == "vlm":
+        batch["image_embeds"] = rng.standard_normal(
+            (B, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def n3_rank(mesh, c, ckpt_dir):
+    """One rank of N3 (on the card or the CPU): for each reduced family in
+    f32 on the (2, 2) mesh, `train_logits` (logits and loss gathered), one
+    decode step (logits gathered) and one train step (its loss, gradient
+    norm and each leaf's change, gathered); then the first
+    family's state after the step saved from the mesh and restored on
+    rank 0 alone (a one-rank `sub_mesh`), bit-equal to the gathered live
+    state."""
+    import torch
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.distributed.mesh import sub_mesh
+    from repro_torch.distributed.sharding import (P, gather_full, gather_tree,
+                                                  is_sharding, local_shard,
+                                                  spec_map)
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.registry import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import (reshard_state, resume_on_new_mesh,
+                                           shardings_for)
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.steps import (batch_spec_tree, make_train_step,
+                                         training_state_shardings)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = mesh.device
+    opt_cfg = AdamWConfig(lr=1e-3, state_dtype="int8")
+    out = {}
+    for i, arch in enumerate(c["small"]):
+        cfg = reduced_config(arch)
+        step, model = make_train_step(cfg, mesh, opt_cfg, device=dev,
+                                      compute_dtype=torch.float32)
+        bx = model._bx
+        full = params_from_numpy(_n3_tree(arch), cfg, device=dev,
+                                 dtype=torch.float32)
+        params = reshard_state(full, shardings_for(mesh, model.specs))
+        batch = {k: local_shard(torch.as_tensor(v, device=dev), mesh,
+                                P(bx)).clone()
+                 for k, v in _n3_batch(arch).items()}
+        with torch.no_grad():
+            logits, aux = model.train_logits(params, batch)
+            loss = model.loss(logits, batch["labels"])
+        res = {"logits": gather_full(logits, mesh, P(bx, None,
+                                                      model.vocab_axes)),
+               "loss": float(loss)}
+        sm = build_model(cfg, mesh, compute_dtype=torch.float32, device=dev)
+        B, S = 4, 16
+        specs = batch_spec_tree(cfg, ShapeConfig("n3", S, B, "decode"),
+                                sm.rules, mesh)
+        caches = init_caches(cfg, B, S, dtype=torch.float32, mesh=mesh,
+                             specs=specs["caches"])
+        rows = local_shard(torch.arange(B), mesh, specs["lengths"])
+        tok = (torch.arange(B, device=dev) * 7 + 3).to(torch.int32)[:, None]
+        lengths = (torch.arange(B, device=dev) % 3).to(torch.int32)
+        with torch.no_grad():
+            lg, _ = sm.decode_step(params, caches, tok[rows], lengths[rows])
+        res["decode"] = gather_full(lg, mesh, P(bx, sm.vocab_axes))
+        # the train step after the decode: both read the same parameters
+        # on the card and on the CPU
+        opt = adamw_init(params, opt_cfg, mesh, model.specs)
+        params, opt, m = step(params, opt, batch)
+        res |= {"step_loss": float(m["loss"]),
+                "gnorm": float(m["grad_norm"]),
+                "delta": spec_map(lambda a, b: a - b, gather_tree(
+                    params, mesh, model.specs), full,
+                    is_leaf=lambda x: isinstance(x, torch.Tensor))}
+        if i == 0:  # the checkpoint drill
+            p_sh, o_sh = training_state_shardings(cfg, mesh, opt_cfg, params,
+                                                  model.specs)
+            sh = {"params": p_sh, "opt": o_sh}
+            spec = spec_map(lambda x: x.spec, sh, is_leaf=is_sharding)
+            ckpt.save(ckpt_dir, 1, {"params": params, "opt": opt},
+                      shardings=sh)
+            live = gather_tree({"params": params, "opt": opt}, mesh, spec)
+            one = sub_mesh((1, 1), ("data", "model"), device=dev)
+            if one is not None:
+                back = resume_on_new_mesh(ckpt_dir, {"params": params,
+                                                     "opt": opt}, one, spec)
+                same = spec_map(lambda s, a, b: (a.dtype == b.dtype
+                                                 and torch.equal(a, b)),
+                                spec, back, live)
+                flat = []
+                spec_map(lambda s, x: flat.append(x), spec, same)
+                res["ckpt"] = (sum(flat), len(flat))
+        out[arch] = res
+    return out if mesh.rank == 0 else None
+
+
+def path_n3(c=PATH_N, device="cuda"):
+    """N3: the reduced families on a (2, 2) mesh of ranks on the card
+    against the same ranks on the CPU."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.distributed import spawn
+
+    got = {}
+    t0 = time.perf_counter()
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    for where in (device, "cpu"):
+        d = TRACE_DIR / f"N3_ckpt_{torch_device_type(where)}"
+        shutil.rmtree(d, ignore_errors=True)
+        got[where] = spawn(n3_rank, c["train_mesh"], ("data", "model"),
+                           device=where, backend="gloo", args=(c, str(d)),
+                           timeout=c["spawn_timeout"])[0]
+        shutil.rmtree(d, ignore_errors=True)
+    card, cpu = got[device], got["cpu"]
+    worst = {}
+    for arch in c["small"]:
+        a, b = card[arch], cpu[arch]
+        for k in ("loss", "step_loss", "gnorm"):
+            if abs(a[k] - b[k]) > abs(b[k]) * (
+                    N3_GNORM_REL if k == "gnorm" else N3_LOSS_REL):
+                raise AssertionError(f"path N3 {arch}: {k} {a[k]} on the "
+                                     f"card, {b[k]} on the CPU")
+        for k in ("logits", "decode"):
+            e = float(np.abs(a[k] - b[k]).max())
+            if e > J4_F32["logits"]:
+                raise AssertionError(f"path N3 {arch}: {k} {e:.2e} apart "
+                                     f"(bound {J4_F32['logits']})")
+            worst[k] = max(worst.get(k, (0.0, 0.0)),
+                           (e, e / float(np.abs(b[k]).max())))
+        for path, dw in _flat_leaves(b["delta"]):
+            dg = _flat_leaves(a["delta"], path)
+            if path.endswith("cross/bk"):
+                # a key bias shifts each query's scores alike: its gradient
+                # is rounding noise, and AdamW steps it by at most
+                # lr (1 + weight decay x |w|) either way
+                if max(np.abs(dg).max(), np.abs(dw).max()) > 2 * c["lr"]:
+                    raise AssertionError(f"path N3 {arch}: {path} moved "
+                                         f"more than 2 x lr")
+                continue
+            e = float(np.linalg.norm(dg - dw) / np.linalg.norm(dw))
+            if not e <= N3_DELTA_REL:
+                raise AssertionError(f"path N3 {arch}: {path}'s change in "
+                                     f"the step {e:.2e} of the CPU's apart "
+                                     f"(bound {N3_DELTA_REL})")
+            worst["delta"] = max(worst.get("delta", (0.0, "")), (e, path))
+    for where, res in got.items():
+        n_same, n = res[c["small"][0]]["ckpt"]
+        if n_same != n:
+            raise AssertionError(f"path N3 ({where}): {n - n_same} of {n} "
+                                 f"checkpoint leaves restored unequal")
+    log(f"[17 path N3] {len(c['small'])} reduced families on a "
+        f"{c['train_mesh']} (data, model) mesh, ranks on the card against "
+        f"ranks on the CPU (f32, TF32 off): loss within {N3_LOSS_REL} "
+        f"relative, logits {worst['logits'][0]:.2e} ({worst['logits'][1]:.2e}"
+        f" of the largest) and decode logits {worst['decode'][0]:.2e} "
+        f"({worst['decode'][1]:.2e}) apart (bound {J4_F32['logits']}), "
+        f"each leaf's change in one int8-moment AdamW step within "
+        f"{worst['delta'][0]:.2e} of the CPU's in norm ({worst['delta'][1]};"
+        f" bound {N3_DELTA_REL}); {c['small'][0]}'s (2, 2) checkpoint restored on one rank "
+        f"bit-equal to the gathered live state on both "
+        f"({card[c['small'][0]]['ckpt'][1]} leaves); "
+        f"{time.perf_counter() - t0:.1f}s")
+
+
+def torch_device_type(device) -> str:
+    import torch
+
+    return torch.device(device).type
+
+
+def _flat_leaves(tree, want=None, prefix=""):
+    """(path, array) leaves of a nested dict, or the leaf at `want`."""
+    out = []
+    for k in sorted(tree):
+        v, p = tree[k], f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out += _flat_leaves(v, None, p)
+        else:
+            out.append((p, v))
+    return dict(out)[want] if want is not None else out
+
+
+def path_n(tree, c=PATH_N, device="cuda"):
+    """Phase 17: N1-N3.  The path's launch counts are those of N1's rank
+    processes' sharded engine runs, each counted from 0 just before it.
+    Returns (launches, launches inside the engine runs, ticks)."""
+    import torch
+
+    from repro_torch.kernels import ops as KO
+
+    took = []
+    dev = torch.device(device)
+    _free(dev)
+    if dev.type == "cuda":
+        log(f"[17 path N] this process holds "
+            f"{torch.cuda.memory_allocated():,} bytes allocated, "
+            f"{torch.cuda.memory_reserved():,} reserved on the card")
+    t0 = time.perf_counter()
+    launches, ticks = path_n1(tree, c, device)
+    missing = [k for k in PATH_KERNELS["N"] if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"path N: kernels {missing} never launched in "
+                             f"the sharded engine runs")
+    took.append(time.perf_counter() - t0)
+    _free(dev)
+    t0 = time.perf_counter()
+    path_n2(c, device)
+    took.append(time.perf_counter() - t0)
+    _free(dev)
+    t0 = time.perf_counter()
+    path_n3(c, device)
+    took.append(time.perf_counter() - t0)
+    log(f"[17 path N] N1 {took[0]:.1f}s, N2 {took[1]:.1f}s, N3 "
+        f"{took[2]:.1f}s")
+    counts = {k: launches.get(k, 0) for k in KO.LAUNCHES}
+    return counts, counts, ticks
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -4482,13 +5105,18 @@ def main() -> int:
     log(f"[16 path M] {time.perf_counter() - t0:.1f}s | launches "
         f"{path_m_counts[0]} (inside its training steps "
         f"{path_m_counts[1]}, {path_m_counts[2]} steps)")
-    log(f"[17 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_n_counts = path_n(tree)
+    log(f"[17 path N] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_n_counts[0]} (inside its sharded engine runs, "
+        f"{path_n_counts[2]} ticks)")
+    log(f"[18 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
         "G": path_g_counts, "H": path_h_counts, "I": path_i_counts,
         "J": path_j_counts, "K": path_k_counts, "L": path_l_counts,
-        "M": path_m_counts},
+        "M": path_m_counts, "N": path_n_counts},
         phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {

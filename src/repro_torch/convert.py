@@ -71,13 +71,14 @@ def packed_tree_from_numpy(arrays: Mapping[str, object],
 
 
 def params_from_numpy(tree: Mapping[str, object], cfg, device=None,
-                      dtype: torch.dtype = torch.bfloat16) -> Dict:
+                      dtype: torch.dtype = torch.bfloat16,
+                      model_axis: int = 1) -> Dict:
     """The port's parameter tree on `device` from the reference's
     `init_params` tree of numpy arrays, leaf for leaf by key path, each in
     `dtype` (but `params.F32_LEAVES`).  Raises unless the key paths and
     shapes are those of `cfg`'s tree."""
     dev = resolve_device(device)
-    want = dict(P.leaves(P.param_layout(cfg)))
+    want = dict(P.leaves(P.param_layout(cfg, model_axis)))
     got = dict(P.leaves(tree))
     if sorted(got) != sorted(want):
         raise KeyError(f"{cfg.name}: key paths {sorted(got)} are not the "

@@ -7,8 +7,11 @@ the reference `device_put`s each batch with its sharding, the port moves
 each array to `device` from pinned host memory without blocking the
 thread (`non_blocking`, on the current stream, so the step that takes the
 batch runs after its copy).  With no `device`, the batches stay numpy, as
-the reference's do with no sharding.  A sharded placement waits for the
-sharding slice (ROADMAP queue 1 item 8.5).
+the reference's do with no sharding.  With `sharding` (a placement, or
+a dict of them by key: `sharding.NamedSharding`, e.g. from
+`train.steps.batch_spec_tree`), each rank keeps its block of the global
+batch, which every rank makes from the same seed (`make_batch(step)`), on
+the mesh's device: the loader and the loop stay in step on every rank.
 """
 
 from __future__ import annotations
@@ -19,6 +22,20 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.distributed.sharding import NamedSharding, local_shard
+
+
+def place(batch: dict, sharding) -> dict:
+    """This rank's block of every array of a global batch under `sharding`
+    (one placement, or a dict of them by key), on the mesh's device."""
+    out = {}
+    for k, x in batch.items():
+        sh = sharding if isinstance(sharding, NamedSharding) else sharding[k]
+        block = local_shard(torch.from_numpy(np.ascontiguousarray(x)),
+                            sh.mesh, sh.spec)
+        out[k] = to_device({k: block.numpy()}, sh.mesh.device)[k]
+    return out
 
 
 def to_device(batch: dict, device) -> dict:
@@ -40,9 +57,11 @@ class ShardedLoader:
         device: Optional[torch.device | str] = None,
         depth: int = 2,
         start_step: int = 0,
+        sharding=None,
     ):
         self._make = make_batch
         self._device = device
+        self._sharding = sharding
         self._q: queue.Queue = queue.Queue(maxsize=depth)
         self._stop = threading.Event()
         self._step = start_step
@@ -53,7 +72,9 @@ class ShardedLoader:
         step = self._step
         while not self._stop.is_set():
             batch = self._make(step)
-            if self._device is not None:
+            if self._sharding is not None:
+                batch = place(batch, self._sharding)
+            elif self._device is not None:
                 batch = to_device(batch, self._device)
             try:
                 self._q.put((step, batch), timeout=1.0)

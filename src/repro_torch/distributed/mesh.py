@@ -13,7 +13,8 @@ row-major over the tuple in the order given (`device_rank`).  Every group
 is made when the mesh is made, since `new_group` is collective over all
 ranks.  Each collective gives JAX's result layout and is counted in
 `Mesh.counts` by (kind, axis tuple), as `kernels.ops.LAUNCHES` counts
-kernel launches, so a run can show which collectives a path issued.
+kernel launches, so a run can show which collectives a path issued, and
+its payload's bytes in `Mesh.bytes`.
 
 Device and backend are explicit: the card unless the caller names another
 device (`utils.hostsync.resolve_device`), NCCL on CUDA and gloo on the CPU
@@ -84,6 +85,7 @@ class Mesh:
         self.backend = backend
         self.staged = backend == "gloo" and device.type == "cuda"
         self.counts: Counter = Counter()
+        self.bytes: Counter = Counter()  # payload bytes this rank sent in
         self._owns_group = owns_group
         self._coords = dict(zip(axes, _unravel(rank, shape)))
         self._groups: Dict[frozenset, Tuple[object, List[int]]] = {}
@@ -148,6 +150,7 @@ class Mesh:
             raise ValueError(f"{kind}: tensor on {x.device}, mesh on "
                              f"{self.device}")
         self.counts[(kind, axes)] += 1
+        self.bytes[(kind, axes)] += x.numel() * x.element_size()
         payload = x.contiguous()
         return self._group(axes), payload.cpu() if self.staged else payload
 
@@ -242,6 +245,7 @@ class Mesh:
 
     def reset_counts(self) -> None:
         self.counts.clear()
+        self.bytes.clear()
 
     def close(self) -> None:
         """Tear the process group down if this mesh set it up."""
@@ -302,6 +306,28 @@ def make_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None,
         raise ValueError(f"mesh of {world} devices on a process group of "
                          f"{dist.get_world_size()}")
     return Mesh(shape, axes, dist.get_rank(), dev, backend, owns)
+
+
+def sub_mesh(shape: Tuple[int, ...], axes: Tuple[str, ...], device=None,
+             backend: Optional[str] = None) -> Optional[Mesh]:
+    """A mesh of `shape` over the first prod(shape) ranks of the process
+    group already set up (another mesh's): the live side of an elastic
+    rescale onto fewer devices.  Every rank of the group calls it, since
+    making process groups is collective; a rank outside the new mesh gets
+    None."""
+    if not dist.is_initialized():
+        raise ValueError("sub_mesh: no process group is set up")
+    size = math.prod(shape)
+    world = dist.get_world_size()
+    if size > world:
+        raise ValueError(f"sub_mesh of {size} devices in a group of {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rank = dist.get_rank()
+    mesh = Mesh(shape, axes, rank, dev,
+                backend or dist.get_backend(), owns_group=False)
+    return mesh if rank < size else None
 
 
 def batch_axes(mesh: Mesh) -> Tuple[str, ...]:

@@ -15,6 +15,7 @@ from typing import Any, Dict
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import local_shape
 from repro_torch.utils.hostsync import resolve_device
 
 Tree = Dict[str, Any]
@@ -72,8 +73,17 @@ def _cache_shapes(cfg: ModelConfig, B: int, S_max: int,
 
 
 def init_caches(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
-                kv_int8: bool = False, device=None) -> Tree:
-    dev = resolve_device(device)
-    return {name: torch.zeros(shape, dtype=dt, device=dev)
-            for name, (shape, dt) in _cache_shapes(cfg, B, S_max, dtype,
-                                                   kv_int8).items()}
+                kv_int8: bool = False, device=None, mesh=None,
+                specs: Tree = None) -> Tree:
+    """Zero decode caches of `B` rows and `S_max` positions on `device`;
+    with a `mesh` and the caches' spec tree (`train.steps.batch_spec_tree`
+    of a decode shape, its "caches"), this rank's blocks, on the mesh's
+    device."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    out = {}
+    for name, (shape, dt) in _cache_shapes(cfg, B, S_max, dtype,
+                                           kv_int8).items():
+        if mesh is not None:
+            shape = local_shape(shape, mesh, specs[name])
+        out[name] = torch.zeros(shape, dtype=dt, device=dev)
+    return out

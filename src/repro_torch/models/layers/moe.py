@@ -20,9 +20,18 @@ Where PyTorch's primitives differ from the reference's:
   expert output times a zero gate gives the reference's NaN.
 
 `cap` is a Python int from static shapes and nothing here reads the
-device, so a decode step stays capturable in a CUDA graph.  The
-expert-parallel `moe_block_ep` (`shard_map` over the model axis) waits
-for the sharding slice (ROADMAP queue 1 item 8.5).
+device, so a decode step stays capturable in a CUDA graph.
+
+`moe_block_ep` is the reference's expert-parallel block (its `shard_map`
+over the model axis), run on each rank of a `Mesh`: the tokens are
+replicated over the model axis, so each model column routes its local
+batch rows to the E_pad / n_model experts it owns with no dispatch
+traffic, and the columns' partial outputs are summed over the model axis.
+The slot budget is per (column, batch rows), ``cap = T_loc*K/E_pad*cf``:
+overflow is decided locally (the reference's documented divergence from
+`moe_block`), and a dropped slot combines the value 0 (the reference's
+``mode="fill"`` gather).  The aux loss is computed on every column and
+`pmean`'d over the batch axes.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.distributed.collectives import enter, leave
 from repro_torch.models.layers.mlp import silu
 
 
@@ -149,4 +159,62 @@ def moe_block(
     slots = dispatch(sel, dims, cap)
     out_buf = experts(xt, slots, cap, w_gate, w_up, w_down)
     out = combine(out_buf, slots, gate_vals)
+    return out.reshape(B, S, D).to(x.dtype), aux
+
+
+def moe_block_ep(
+    x: torch.Tensor,  # (B_loc, S, D): this rank's rows, replicated over model
+    router_w: torch.Tensor,  # (D, E_pad) whole
+    w_gate: torch.Tensor,  # (E_loc, D, F): this column's experts
+    w_up: torch.Tensor,  # (E_loc, D, F)
+    w_down: torch.Tensor,  # (E_loc, F, D)
+    dims: MoEDims,
+    mesh,
+    batch_axes: Tuple[str, ...],
+    model_axis: str = "model",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on this rank of `mesh`.  Returns (output
+    (B_loc, S, D), the same on every column; aux (), the same on every
+    rank).  Autograd: `x`'s gradient is summed over the model axis here;
+    `router_w`'s is this column's share, which the caller sums over the
+    model axis (a `collectives.gather` of the router)."""
+    B, S, D = x.shape
+    E, K = dims.n_experts_pad, dims.top_k
+    n_cols = mesh.axis_size(model_axis)
+    assert E % n_cols == 0, (E, n_cols)
+    E_loc = E // n_cols
+    x = enter(x, mesh, model_axis)
+    T = B * S
+    xt = x.reshape(T, D)
+    probs, gate_vals, sel = route(xt, router_w, dims)
+    aux = balance_loss(probs, sel, dims)
+    col = mesh.device_rank(model_axis)
+    cap = capacity(T, dims)
+    base = torch.zeros(E_loc, dtype=torch.int64, device=x.device)
+    slots = []
+    for k in range(K):
+        ek = sel[:, k]
+        is_local = (ek // E_loc) == col
+        le = torch.where(is_local, ek % E_loc, torch.full_like(ek, E_loc))
+        onehot = one_hot(le, E_loc)  # the spare index E_loc: a zero row
+        within = torch.cumsum(onehot, dim=0) - onehot
+        pos = (within * onehot).sum(1) + torch.where(
+            is_local, base[le.clamp(max=E_loc - 1)], torch.zeros_like(le))
+        base = base + onehot.sum(0)
+        keep = is_local & (pos < cap)
+        e_safe = torch.where(keep, le, torch.full_like(le, E_loc))
+        p_safe = torch.where(keep, pos, torch.zeros_like(pos))
+        slots.append((e_safe, p_safe, keep))
+    out_buf = experts(xt, slots, cap, w_gate, w_up, w_down)
+    # the spare row E_loc reads 0 (the reference's fill)
+    out_buf = torch.cat([out_buf, out_buf.new_zeros((1,) + out_buf.shape[1:])])
+    out = torch.zeros((T, D), dtype=torch.float32, device=x.device)
+    for k, (e_safe, p_safe, keep) in enumerate(slots):
+        w = gate_vals[:, k].float() * keep
+        out = out + out_buf[e_safe, p_safe].float() * w[:, None]
+    out = leave(out, mesh, model_axis)  # the row-parallel combine
+    # every column computes the same aux: its gradient counts once
+    aux = aux.detach() + (aux - aux.detach()) / n_cols
+    if batch_axes:
+        aux = leave(aux / mesh.axis_size(batch_axes), mesh, batch_axes)
     return out.reshape(B, S, D).to(x.dtype), aux

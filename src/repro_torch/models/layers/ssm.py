@@ -15,8 +15,14 @@ The two three-operand einsums contract in the order XLA's einsum takes
 contract over the chunk; the inter-chunk output weights `C` first when
 N < P, and otherwise contracts over N first and weights the result.
 Each pairwise step rounds to the input dtype, so in bf16 the order is
-part of the result.  The head-axis sharding callback (`cstr`) waits for
-the sharding slice (ROADMAP queue 1 item 8.5).
+part of the result.
+
+The reference's head-axis sharding callback (`cstr`) pins the chunk
+tensors' heads to the model axis for XLA.  The port shards the SSD by
+heads explicitly (`Model._ssm_params`): each model rank calls
+`ssd_forward` and `ssd_decode_step` with its heads' columns of `in_proj`
+and of the conv, its heads' `A_log`, `dt_bias` and `D` and `SSMDims` of
+its heads and their B/C groups, which is the same per-head arithmetic.
 """
 
 from __future__ import annotations

@@ -9,16 +9,19 @@ biases and the VLM's cross-attention ``gate`` zero; the SSD's ``A_log``
 log(1..H) and ``D`` one).  The enc-dec family stacks its encoder
 (``enc_attn``, ``enc_mlp``) and decoder (``dec_attn``, ``dec_cross``,
 ``dec_mlp``) layers; the VLM's ``cross`` holds one attention layer for
-every ``cross_attn_every`` layers.  The port has no mesh, so the experts
-are padded as the reference's mesh-free `build_model` pads them
-(`MODEL_AXIS`): the port's tree takes that model's `init` tree leaf for
-leaf.  The draws come from an explicit `torch.Generator`, whose stream is
+every ``cross_attn_every`` layers.  The experts pad to a multiple of the
+mesh's model axis (`padded_experts`; 1 with no mesh, as the reference's
+mesh-free `build_model`): the port's tree takes that model's `init` tree
+leaf for leaf.  The draws come from an explicit `torch.Generator`, whose stream is
 not `jax.random`'s: a test that needs the reference's numbers converts its
 tree (`convert.params_from_numpy`).  The leaves are stored in
 the compute dtype, so no f32 copy stays on the card; a stacked leaf is
 drawn in f32 and cast one matrix at a time, which keeps the peak near the
-stored total.  The spec tree of `PartitionSpec`s waits for the sharding
-slice (ROADMAP queue 1 item 8.5).
+stored total.  `param_specs` is the reference's spec tree, the second
+value its `init_params` returns: a `PartitionSpec` for every leaf, from
+the `ShardingRules` (the hybrid family's two-axis leaves take a leading
+None); `init_params(..., mesh=, specs=)` keeps each rank's block of every
+drawn leaf (`sharding.local_shard`).
 """
 
 from __future__ import annotations
@@ -29,15 +32,13 @@ from typing import Any, Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import pad_to_multiple
+from repro_torch.distributed.sharding import (P, ShardingRules, local_shard,
+                                              pad_to_multiple)
 from repro_torch.utils.hostsync import resolve_device
 
 Tree = Dict[str, Any]
 
 VOCAB_PAD = 128  # pad vocab to multiples of 128
-# The experts pad to a multiple of the model axis; with no mesh the
-# reference's `build_model` takes 1 (src/repro/models/registry.py).
-MODEL_AXIS = 1
 
 # Leaves the reference reads without casting to the compute dtype: kept in
 # f32 (model.py's `_unembed` passes `final_norm_b` as stored, the ssm
@@ -50,9 +51,11 @@ def padded_vocab(cfg: ModelConfig) -> int:
     return pad_to_multiple(cfg.vocab, VOCAB_PAD)
 
 
-def padded_experts(cfg: ModelConfig) -> int:
+def padded_experts(cfg: ModelConfig, model_axis: int = 1) -> int:
+    """The experts padded to a multiple of the mesh's model axis (1 with
+    no mesh, as the reference's `build_model` takes it)."""
     assert cfg.moe is not None
-    return pad_to_multiple(cfg.moe.n_experts, MODEL_AXIS)
+    return pad_to_multiple(cfg.moe.n_experts, model_axis)
 
 
 # (shape, init): init a float is N(0, init^2), None a zero leaf, "ones" a
@@ -145,7 +148,7 @@ def _restack(layout: Dict[str, Leaf], nsb: int, per: int) -> Dict[str, Leaf]:
             for k, (shape, init) in layout.items()}
 
 
-def param_layout(cfg: ModelConfig) -> Tree:
+def param_layout(cfg: ModelConfig, model_axis: int = 1) -> Tree:
     """The parameter tree as (shape, init) leaves, in the reference's
     key order (which is also its draw order)."""
     V = padded_vocab(cfg)
@@ -164,7 +167,8 @@ def param_layout(cfg: ModelConfig) -> Tree:
         layout["attn"] = _attn_layout(cfg, L)
         if cfg.moe:
             n_moe = L // cfg.moe.every
-            layout["moe"] = _moe_layout(cfg, n_moe, padded_experts(cfg))
+            layout["moe"] = _moe_layout(cfg, n_moe,
+                                        padded_experts(cfg, model_axis))
             if cfg.moe.every > 1:
                 layout["mlp"] = _mlp_layout(cfg, L - n_moe)
         else:
@@ -193,7 +197,8 @@ def param_layout(cfg: ModelConfig) -> Tree:
         layout["ssm"] = _restack(_ssm_layout(cfg, nsb * n_mamba), nsb,
                                  n_mamba)
         layout["moe"] = _restack(
-            _moe_layout(cfg, nsb * n_moe_sb, padded_experts(cfg)),
+            _moe_layout(cfg, nsb * n_moe_sb,
+                        padded_experts(cfg, model_axis)),
             nsb, n_moe_sb)
         layout["mlp"] = _restack(_mlp_layout(cfg, nsb * n_dense_sb), nsb,
                                  n_dense_sb)
@@ -242,10 +247,14 @@ def _fill(shape, init, dtype, device) -> torch.Tensor:
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
-                dtype: torch.dtype = torch.bfloat16, device=None) -> Tree:
+                dtype: torch.dtype = torch.bfloat16, device=None,
+                model_axis: int = 1, mesh=None, specs: Tree = None) -> Tree:
     """Random parameters of a config on `device` (the card unless the
     caller names another), every leaf in `dtype` but `F32_LEAVES`.  The
-    generator's device need not be `device`: draws move across."""
+    generator's device need not be `device`: draws move across.  With a
+    `mesh` and the `specs` tree, each leaf is drawn whole (every rank
+    draws the same numbers from the same seed) and this rank keeps its
+    block."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -262,6 +271,57 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
             out[k] = (_draw(generator, shape, init, dt, dev)
                       if isinstance(init, float)
                       else _fill(shape, init, dt, dev))
+            if mesh is not None:
+                out[k] = local_shard(out[k], mesh,
+                                     spec_at(specs, path)).clone()
         return out
 
-    return build(param_layout(cfg))
+    return build(param_layout(cfg, model_axis))
+
+
+def spec_at(tree: Tree, path: str):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+# the rule field (or the fixed spec) of each leaf name
+_REPLICATED2 = P(None, None)
+_ROLE = {
+    "embed": "embed", "head": "head", "final_norm": "norm_scale",
+    "final_norm_b": "norm_scale", "norm": _REPLICATED2,
+    "norm_b": _REPLICATED2, "wq": "wq", "wk": "wkv", "wv": "wkv",
+    "wo": "wo", "bq": "qkv_bias", "bk": "qkv_bias", "bv": "qkv_bias",
+    "w_in": "w_in", "b_in": "qkv_bias", "w_out": "w_out",
+    "b_out": _REPLICATED2, "w_gate": "w_in", "w_up": "w_in",
+    "w_down": "w_out", "router": "router", "e_gate": "expert_in",
+    "e_up": "expert_in", "e_down": "expert_out", "in_proj": "ssm_in",
+    "conv_w": "conv_kernel", "conv_b": "ssm_small", "A_log": _REPLICATED2,
+    "dt_bias": _REPLICATED2, "D": _REPLICATED2, "out_proj": "ssm_out",
+    "gate": P(None),
+}
+
+
+def param_specs(cfg: ModelConfig, rules: Optional[ShardingRules] = None,
+                model_axis: int = 1) -> Tree:
+    """The spec tree of `param_layout`'s tree (the reference's
+    `init_params` second value): the hybrid family's two-axis SSD, MoE and
+    MLP leaves take a leading None."""
+    rules = rules or ShardingRules()
+
+    def build(layout: Tree, prefix: str = "") -> Tree:
+        out: Tree = {}
+        for k, v in layout.items():
+            path = f"{prefix}/{k}" if prefix else k
+            if isinstance(v, dict):
+                out[k] = build(v, path)
+                continue
+            role = _ROLE[k]
+            spec = getattr(rules, role) if isinstance(role, str) else role
+            if cfg.family == "hybrid" and path.split("/")[0] in (
+                    "ssm", "moe", "mlp"):
+                spec = P(None, *spec)
+            out[k] = spec
+        return out
+
+    return build(param_layout(cfg, model_axis))

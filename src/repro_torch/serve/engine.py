@@ -33,6 +33,17 @@ Host loop, one engine tick:
     all slots -> decode             (one token for every slot, on the device)
     finished  -> release slots      (one host read of tokens and lengths)
 
+With a `mesh` (and optionally `rules`, e.g. `sharding.tp_only_params`)
+every rank of the mesh runs the same engine on its own device from the
+same seed: the same scheduler and the same dispatch stream, the host loop
+replicated.  The model is sharded (`models.model`): each rank holds its
+blocks of the parameters (`params`, under `model.specs`) and of the caches
+(`train.steps.batch_spec_tree`'s decode specs: its batch-axes rows, its
+block of positions), decodes its rows, and the greedy token of every row
+comes from a gathered argmax (`Model.greedy`, then an all_gather over the
+batch axes).  A durable engine on a mesh is refused: every rank would
+write the same store.
+
 With `sched_window > 1` the engine batches K scheduler ticks into one
 `SmartPQScheduler.tick_window` call and spreads the window's dispatch budget
 across its ticks with a slot-availability forecast (`_window_budgets`);
@@ -103,22 +114,38 @@ class ServeEngine:
     supplies them instead of the seeded generator)."""
 
     def __init__(self, cfg, params, engine_cfg: EngineConfig, mesh=None,
-                 seed: int = 0, device=None, tree=None, draws=None):
-        del mesh
+                 seed: int = 0, device=None, tree=None, draws=None,
+                 rules=None):
+        if mesh is not None:
+            if cfg is None:
+                raise ValueError("a mesh shards a model: the synthetic "
+                                 "decode has none")
+            if engine_cfg.durable_dir is not None:
+                raise ValueError("a durable engine on a mesh: every rank "
+                                 "would write the same store")
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+        self.mesh = mesh
         self.device = resolve_device(device)
         self.ecfg = engine_cfg
         self.params = params
         B, S = engine_cfg.batch_size, engine_cfg.max_seq
+        self._rows = None
         if cfg is not None:
             # imported at call time, as the reference's engine does, so a
             # caller can swap them (the f32 engine comparisons do)
             from repro_torch.models.io import init_caches
             from repro_torch.models.registry import build_model
 
-            self.model = build_model(cfg, kv_chunk=engine_cfg.kv_chunk,
-                                     device=self.device)
-            self.caches = init_caches(cfg, B, S, device=self.device)
-            self._decode = self.model.decode_step
+            self.model = build_model(cfg, mesh, kv_chunk=engine_cfg.kv_chunk,
+                                     device=self.device, rules=rules)
+            if mesh is None:
+                self.caches = init_caches(cfg, B, S, device=self.device)
+                self._decode = self.model.decode_step
+            else:
+                self._shard_decode(cfg, B, S)
         else:  # model-free synthetic decode: scheduler and engine loop only
             self.model = None
             self.caches = ()
@@ -179,6 +206,41 @@ class ServeEngine:
             ), obs=self.obs)
             # shed and evict decisions leave records beside the admissions
             self.scheduler.wal_sink = self.durability.log_event
+
+    def _shard_decode(self, cfg, B: int, S: int) -> None:
+        """This rank's caches and rows on the mesh, and its decode."""
+        from repro_torch.configs.base import ShapeConfig
+        from repro_torch.distributed.sharding import entry_axes
+        from repro_torch.models.io import init_caches
+        from repro_torch.train.steps import batch_spec_tree
+
+        specs = batch_spec_tree(cfg, ShapeConfig("serve", S, B, "decode"),
+                                self.model.rules, self.mesh)
+        self.caches = init_caches(cfg, B, S, mesh=self.mesh,
+                                  specs=specs["caches"])
+        self._batch_axes = entry_axes(specs["tokens"][0])
+        n = self.mesh.axis_size(self._batch_axes)
+        if B % n:
+            raise ValueError(f"{B} slots do not split {n} ways over "
+                             f"{self._batch_axes}")
+        first = self.mesh.device_rank(self._batch_axes) * (B // n)
+        self._rows = slice(first, first + B // n)
+        model = self.model
+
+        def decode(params, caches, tokens, lengths):
+            return model.decode_step(params, caches, tokens[self._rows],
+                                     lengths[self._rows])
+
+        self._decode = decode
+
+    def _greedy(self, logits) -> torch.Tensor:
+        """The next token of every slot, (B,) int32."""
+        if self._rows is None:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        tok = self.model.greedy(logits)
+        if self._batch_axes and self.mesh.axis_size(self._batch_axes) > 1:
+            tok = self.mesh.all_gather(tok, self._batch_axes, tiled=True)
+        return tok
 
     # -- admission -------------------------------------------------------------
 
@@ -270,7 +332,7 @@ class ServeEngine:
         logits, self.caches = self._decode(
             self.params, self.caches, self.tokens, self.lengths
         )
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        next_tok = self._greedy(logits)
         active = np.array([r is not None for r in self.active], np.int32)
         self.lengths = self.lengths + torch.as_tensor(active,
                                                       device=self.device)

@@ -13,8 +13,15 @@ the other's checkpoints:
 A training state is {"params": ..., "opt": OptState}; an int8 first
 moment's (q, scale) pair is two leaves (``[0]``, ``[1]``) and a bf16 leaf
 is stored as f32 with its dtype tag, as the reference stores them.
-`restore(..., shardings=)`, the reference's elastic re-placement onto a
-mesh, waits for the sharding slice (ROADMAP queue 1 item 8.5).
+
+A sharded state (every rank's blocks, with its placements `shardings`, a
+tree of `sharding.NamedSharding` of the state's structure) is saved as
+full, unsharded leaves, the reference's format, so a checkpoint crosses
+packages and meshes: `save(..., shardings=)` gathers every leaf (a
+collective of the mesh's ranks) and the mesh's rank 0 writes.
+`restore(..., shardings=)` re-places every leaf: each rank keeps its block
+under the placement, on its `like` leaf's device and in its dtype (the
+elastic path).
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ import numpy as np
 import torch
 
 from repro_torch.core import persist
+from repro_torch.distributed.sharding import (gather_full, is_sharding,
+                                              local_shard, spec_map)
 
 
 def _host_copy(tree: Any) -> Any:
@@ -37,13 +46,34 @@ def _host_copy(tree: Any) -> Any:
         else np.array(x) for x in leaves])
 
 
+def _mesh_of(shardings):
+    found = []
+    spec_map(lambda sh: found.append(sh.mesh), shardings, is_leaf=is_sharding)
+    return found[0]
+
+
 def save(ckpt_dir: str | Path, step: int, tree: Any, *,
-         async_write: bool = False):
+         async_write: bool = False, shardings: Any = None):
     """Write a checkpoint; the LATEST pointer flips only after fsync.  The
     leaves are copied to the host before this returns (the caller updates
     the live tree in place right after); with `async_write` the write runs
-    on a thread, which is returned."""
+    on a thread, which is returned.  With `shardings` every rank of the
+    mesh calls this: the leaves are gathered whole and the mesh's rank 0
+    writes them (the others return None once it has, unless
+    `async_write`)."""
     ckpt_dir = Path(ckpt_dir)
+    if shardings is not None:
+        mesh = _mesh_of(shardings)
+        tree = spec_map(lambda sh, x: gather_full(x, sh.mesh, sh.spec),
+                        shardings, tree, is_leaf=is_sharding)
+        if mesh.rank != 0:
+            if not async_write:
+                torch.distributed.barrier()
+            return None
+        if not async_write:
+            persist.save_tree(ckpt_dir, step, _host_copy(tree))
+            torch.distributed.barrier()
+            return None
     host_tree = _host_copy(tree)
 
     def _write():
@@ -65,10 +95,19 @@ def restore(ckpt_dir: str | Path, like: Any, step: Optional[int] = None,
             shardings: Any = None) -> Any:
     """Restore into the structure of `like`: each tensor leaf comes back on
     its `like` leaf's device and in its dtype (the cast of the elastic
-    path), a numpy leaf in its dtype."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore(shardings=): elastic re-placement onto a mesh waits for "
-            "the sharding slice (ROADMAP queue 1 item 8.5)")
-    tree, _manifest = persist.load_tree(ckpt_dir, like, step)
-    return tree
+    path), a numpy leaf in its dtype.  With `shardings` (a placement a
+    leaf) each rank keeps its block of every leaf; `like`'s leaves may be
+    blocks of any shape."""
+    if shardings is None:
+        tree, _manifest = persist.load_tree(ckpt_dir, like, step)
+        return tree
+    # whole leaves land on the host; each rank moves its block across
+    host_like = spec_map(
+        lambda x: torch.empty(0, dtype=x.dtype) if isinstance(
+            x, torch.Tensor) else x, like,
+        is_leaf=lambda x: not isinstance(x, (dict, tuple, list)))
+    full, _manifest = persist.load_tree(ckpt_dir, host_like, step)
+    return spec_map(
+        lambda sh, x, lk: local_shard(x, sh.mesh, sh.spec).to(
+            device=lk.device, copy=True), shardings, full, like,
+        is_leaf=is_sharding)

@@ -11,6 +11,12 @@ stream PyTorch cannot reproduce); each step's batch is
 `SyntheticLMDataset.batch(step, batch_size)` moved to the device.  The
 train step updates the parameters and moments in place; a checkpoint
 copies them to the host before the next step.
+
+With a `mesh` every rank runs the loop: it draws the same parameters and
+keeps its blocks (ZeRO-3 + tensor parallel, `models.model`), takes its
+rows of each global batch (`data.loader.place`), saves through
+`checkpoint.save(shardings=)` (gathered whole; the mesh's rank 0 writes)
+and resumes through `checkpoint.restore(shardings=)` (every rank).
 """
 
 from __future__ import annotations
@@ -21,14 +27,17 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from repro_torch.data.loader import to_device
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data.loader import place, to_device
 from repro_torch.data.synthetic import SyntheticLMDataset
 from repro_torch.models.params import init_params
 from repro_torch.train import checkpoint as ckpt
+from repro_torch.train.elastic import shardings_for
 from repro_torch.train.fault import (FailureInjector, PreemptionGuard,
                                      StragglerWatchdog)
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
-from repro_torch.train.steps import make_train_step
+from repro_torch.train.steps import (batch_spec_tree, make_train_step,
+                                     training_state_shardings)
 
 
 @dataclasses.dataclass
@@ -60,20 +69,31 @@ def run(
     dev = model.device
 
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
-        loop.seed), dtype=torch.float32, device=dev)
-    opt_state = adamw_init(params, opt_cfg)
+        loop.seed), dtype=torch.float32, device=dev,
+        model_axis=model.model_axis_size, mesh=mesh, specs=model.specs)
+    opt_state = adamw_init(params, opt_cfg, mesh, model.specs)
+    state_sh = batch_sh = None
+    if mesh is not None:
+        p_sh, o_sh = training_state_shardings(cfg, mesh, opt_cfg, params,
+                                              model.specs)
+        state_sh = {"params": p_sh, "opt": o_sh}
     start_step = 0
     resumed_from = None
 
     if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
         state = ckpt.restore(loop.ckpt_dir,
-                             {"params": params, "opt": opt_state})
+                             {"params": params, "opt": opt_state},
+                             shardings=state_sh)
         params, opt_state = state["params"], state["opt"]
         start_step = int(opt_state.step)
         resumed_from = start_step
 
     data = data or SyntheticLMDataset(vocab=cfg.vocab, seq_len=128,
                                       seed=loop.seed)
+    if mesh is not None:
+        batch_sh = shardings_for(mesh, batch_spec_tree(
+            cfg, ShapeConfig("loop", data.seq_len, loop.batch_size, "train"),
+            model.rules, mesh))
     watchdog = StragglerWatchdog(threshold=loop.straggler_threshold)
     guard = PreemptionGuard(install=install_signals)
     losses: List[float] = []
@@ -85,7 +105,9 @@ def run(
         while step < loop.steps:
             if injector:
                 injector.maybe_fail(step)
-            batch = to_device(data.batch(step, loop.batch_size), dev)
+            batch = data.batch(step, loop.batch_size)
+            batch = (to_device(batch, dev) if batch_sh is None
+                     else place(batch, batch_sh))
             t0 = time.time()
             params, opt_state, metrics = train_step(params, opt_state, batch)
             loss = float(metrics["loss"])
@@ -107,6 +129,7 @@ def run(
                     step,
                     {"params": params, "opt": opt_state},
                     async_write=loop.async_ckpt,
+                    shardings=state_sh,
                 )
             if guard.requested:
                 events.append({"kind": "preempted", "step": step})

@@ -441,9 +441,9 @@ def test_engine_refuses_what_is_not_ported(tree, tmp_path):
     """A model config of every family builds (its bf16 K/V caches of
     batch_size x max_seq, its f32 SSD states, the enc-dec and VLM
     families' cross K/V) and serves; the int8 KV cache, ported since,
-    builds; what waits for the sharding slice (a checkpoint restored onto
-    a mesh, a train step over one) raises, naming its ROADMAP item,
-    instead of running something else; the durable engine
+    builds; the sharding slice, ported since, restores a checkpoint onto
+    a mesh placement and steps a train step over a (1, 1) mesh; the
+    durable engine
     (`durable_dir`), ported since, runs and reports its store in
     `health()`."""
     cfg = reduced_config(MODEL_ARCH)
@@ -470,20 +470,30 @@ def test_engine_refuses_what_is_not_ported(tree, tmp_path):
                                            else torch.bfloat16), (arch, k)
         assert eng.run([[Request(uid=0, prompt_len=4, max_new_tokens=3)]],
                        max_steps=20)["completed"] == 1, arch
-    # the int8 KV cache (item 8.4) is ported now; what the sharding slice
-    # brings is still refused, naming its item
+    # the int8 KV cache (item 8.4) and the sharding slice (item 8.5) are
+    # ported: a placement restores and a train step builds on a mesh
     assert TMR.build_model(cfg, kv_int8=True, device="cpu").kv_int8
     from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import P, named
     from repro_torch.train import checkpoint
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.steps import make_train_step
 
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8.5"):
-        checkpoint.restore(tmp_path, {"w": torch.zeros(2)},
-                           shardings={"w": None})
-    with make_mesh((1, 1), ("pod", "shard"), device="cpu") as mesh:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item 8.5"):
-            make_train_step(cfg, mesh, device="cpu")
+    checkpoint.save(tmp_path / "ck", 1, {"w": torch.arange(4.)})
+    with make_mesh((1, 1), ("data", "model"), device="cpu") as mesh:
+        back = checkpoint.restore(tmp_path / "ck", {"w": torch.zeros(2)},
+                                  shardings={"w": named(mesh, P("model"))})
+        assert torch.equal(back["w"], torch.arange(4.))
+        step, model = make_train_step(cfg, mesh, AdamWConfig(lr=1e-3),
+                                      device="cpu")
+        assert model.mesh is mesh
+        params = model.init(torch.Generator().manual_seed(0))
+        st = adamw_init(params, AdamWConfig(lr=1e-3), mesh, model.specs)
+        tok = torch.randint(0, cfg.vocab, (2, 9), generator=torch.Generator(
+            ).manual_seed(1), dtype=torch.int32)
+        _, st, m = step(params, st, {"tokens": tok[:, :-1],
+                                     "labels": tok[:, 1:]})
+        assert int(st.step) == 1 and torch.isfinite(m["loss"])
     eng = ServeEngine(None, None, EngineConfig(
         batch_size=4, sched_window=4, durable_dir=str(tmp_path / "d")),
         device="cpu", tree=tree)

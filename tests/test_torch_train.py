@@ -308,16 +308,23 @@ def test_straggler_watchdog():
 
 
 def test_elastic_restore_dtype_and_structure(tmp_path):
-    """Restore onto a differently-typed target (the elastic path's cast);
-    a mesh placement waits for the sharding slice."""
-    tree = {"w": torch.ones((4, 8), dtype=torch.float32)}
+    """Restore onto a differently-typed target (the elastic path's cast),
+    and onto a mesh placement: each rank's block, in the target's dtype."""
+    tree = {"w": torch.arange(32, dtype=torch.float32).reshape(4, 8)}
     ckpt.save(tmp_path, 1, tree)
     like = {"w": torch.zeros((4, 8), dtype=torch.bfloat16)}
     out = ckpt.restore(tmp_path, like)
     assert out["w"].dtype == torch.bfloat16
-    np.testing.assert_allclose(out["w"].float().numpy(), 1.0)
-    with pytest.raises(NotImplementedError, match="item 8.5"):
-        ckpt.restore(tmp_path, like, shardings={"w": None})
+    np.testing.assert_allclose(out["w"].float().numpy(), tree["w"].numpy())
+    from repro_torch.distributed import make_mesh
+    from repro_torch.distributed.sharding import P, named
+
+    with make_mesh((1, 1), ("data", "model"), device="cpu") as mesh:
+        placed = ckpt.restore(tmp_path, like, shardings={
+            "w": named(mesh, P("data", "model"))})
+    assert placed["w"].dtype == torch.bfloat16
+    np.testing.assert_allclose(placed["w"].float().numpy(),
+                               tree["w"].numpy())
 
 
 # ---------------------------------------------------------------------------
