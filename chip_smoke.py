@@ -186,7 +186,23 @@ non-zero before its last line):
               on the CPU (`train_logits`, one train step, one decode step)
               and the (2, 2) checkpoint restored on one rank bit-equal to
               the gathered live state;
-  18. the total time; then the kernels JSON line, the card line, and the
+  18. path O  the four examples (`repro_torch.examples`) at their own sizes
+              on the card, each logging its summary and OK line: O1
+              quickstart and O2 sssp rerun on the CPU with the same draws,
+              carry, distances and results bit-identical; O3 serve_demo
+              as the example runs it (bf16), in f32 on the card and on the
+              CPU with the same parameters and draws (mode trace,
+              completion steps and tokens equal) and its bf16 logits card
+              against CPU within `J4_BF16_ULPS`; O4 train_demo (`CFG_100M`,
+              200 steps at batch 8, restarted from its checkpoint at step
+              100, losses falling);
+  19. path P  the dry run (`launch/dryrun.py`) on fake CUDA tensors over the
+              abstract (16, 16) production mesh: gemma-2b decode_32k
+              (serve_tp_only), llama3.2-3b train_4k and mamba2-780m
+              long_500k, each record equal to the same cell's on the CPU
+              but for the device fields, the fit judged against the card's
+              memory, no kernel launched;
+  20. the total time; then the kernels JSON line, the card line, and the
      result line.
 
 Each path sets the kernels' launch counts to 0 just before it runs and reads
@@ -204,7 +220,9 @@ runs (the model itself launches no hand kernel); on paths K and L
 likewise, K1's and K2's (L1's and L2's) engine runs each counted from 0
 just before it; on path N an engine tick does, and its launches are those
 of N1's four rank processes' sharded engine runs, each counted from 0 just
-before it (N2 and N3 launch no hand kernel).
+before it (N2 and N3 launch no hand kernel); on path O an example's step
+or engine tick does, and its launches are all of its card runs' (the CPU
+reruns and train_demo launch none); path P launches nothing.
 `merge_sorted` has no caller
 on any path; phase 2 alone launches it.  The profiler traces go to
 build/chip_smoke/, path H's stores to build/chip_smoke/durable/.  The
@@ -620,6 +638,9 @@ PATH_KERNELS = {
     "L": ("windowed_merge", "topk_smallest", "elim_sort"),
     "M": (),  # training has no hand kernel
     "N": ("topk_smallest", "elim_sort"),  # N1's ticks merge no head
+    "O": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
+          "multiq_select"),
+    "P": (),  # the dry run's tensors are fake: it launches nothing
 }
 PREFILL_BATCH = 4096
 # Kernel launches inside `run_window` calls only (prefills excluded), per
@@ -4049,6 +4070,42 @@ def _timed_steps(step, params, opt, batch, n, dev):
     return params, opt, ms, losses
 
 
+def profile_train_step(step, model, params, opt, batch, name):
+    """One train step after one warm-up step under torch.profiler, its
+    device calls attributed to M_LABELS' ranges (forward, loss, backward,
+    optimizer; `device_us_by_label`).  Returns (params, opt, {range:
+    (calls, µs)})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    import repro_torch.train.steps as TS
+
+    TRACE_DIR.mkdir(parents=True, exist_ok=True)
+    path = TRACE_DIR / f"{name}.json"
+    prof = profile(
+        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+        schedule=schedule(wait=0, warmup=1, active=1),
+        on_trace_ready=lambda p: p.export_chrome_trace(str(path)))
+    targets = [(model, "train_logits", M_LABELS["forward"]),
+               (TS, "cross_entropy_loss", M_LABELS["loss"]),
+               (torch.autograd, "grad", M_LABELS["backward"]),
+               (TS, "grad_norm", M_LABELS["optimizer"]),
+               (TS, "adamw_update", M_LABELS["optimizer"])]
+    with labelled(targets), prof:
+        for _ in range(2):
+            params, opt, _ = step(params, opt, batch)
+            torch.cuda.synchronize()
+            prof.step()
+    return params, opt, device_us_by_label(path)
+
+
+def by_range_line(by) -> str:
+    total = sum(us for _, us in by.values())
+    return (f"({sum(n for n, _ in by.values())} calls, {total / 1e3:.3f} "
+            "ms): " + "; ".join(f"{k} {us / 1e3:.3f} ms in {n} calls"
+                                for k, (n, us) in sorted(by.items())))
+
+
 def path_m2(c=PATH_M, device="cuda"):
     """M2: llama3.2-3b trained at full width (f32 masters, bf16 compute,
     remat, int8 first moments).  Returns the steps run (the main path's
@@ -4056,7 +4113,6 @@ def path_m2(c=PATH_M, device="cuda"):
     import statistics
 
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
     import repro_torch.train.steps as TS
     from repro_torch.configs.registry import get_config, reduced_config
@@ -4118,28 +4174,10 @@ def path_m2(c=PATH_M, device="cuda"):
         f"{opt_bytes:,} bytes at 3.35 TB/s {bytes_ms:.3f} ms), model-FLOPs "
         f"share {flops_ms / med:.4f}; {took:.1f}s")
     if dev.type == "cuda":
-        TRACE_DIR.mkdir(parents=True, exist_ok=True)
-        path = TRACE_DIR / "M2_train_step.json"
-        prof = profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-            schedule=schedule(wait=0, warmup=1, active=1),
-            on_trace_ready=lambda p: p.export_chrome_trace(str(path)))
-        targets = [(model, "train_logits", M_LABELS["forward"]),
-                   (TS, "cross_entropy_loss", M_LABELS["loss"]),
-                   (torch.autograd, "grad", M_LABELS["backward"]),
-                   (TS, "grad_norm", M_LABELS["optimizer"]),
-                   (TS, "adamw_update", M_LABELS["optimizer"])]
-        with labelled(targets), prof:
-            for _ in range(2):
-                params, opt, metrics = step(params, opt, batch)
-                torch.cuda.synchronize()
-                prof.step()
-        by = device_us_by_label(path)
-        total = sum(us for _, us in by.values())
+        params, opt, by = profile_train_step(step, model, params, opt, batch,
+                                             "M2_train_step")
         log(f"[16 path M2] one profiled step on the device by range "
-            f"({sum(n for n, _ in by.values())} calls, {total / 1e3:.3f} "
-            "ms): " + "; ".join(f"{k} {us / 1e3:.3f} ms in {n} calls"
-                                for k, (n, us) in sorted(by.items())))
+            f"{by_range_line(by)}")
     del params, opt
     return c["warmup"] + c["timed"]
 
@@ -4991,6 +5029,309 @@ def path_n(tree, c=PATH_N, device="cuda"):
 
 
 # ---------------------------------------------------------------------------
+# path O: the four examples at their own sizes
+# ---------------------------------------------------------------------------
+
+# The examples (`repro_torch.examples`) at the sizes examples/*.py run:
+# quickstart (16 shards x 4096, 2 x 12 steps of 64 lanes), sssp
+# (`random_graph(n=512)`, three fixed schedules at m = 32 and the adaptive
+# engine at m = 16), serve_demo (reduced llama3.2-3b, 4 slots, max_seq 64,
+# 24 requests) and train_demo (`CFG_100M`, 12 layers x 768, batch 8 x 256,
+# bf16 moments, a checkpoint every 25 steps, restarted at the halfway
+# step).  The draws of the CPU reruns are made on the host first, so both
+# runs take the same ones.
+PATH_O = dict(draw_steps=512, draw_seed=31, serve_seed=37, train_steps=200,
+              train_batch=8, logit_steps=4, o4_timed=5)
+
+
+def _o_log(tag):
+    return lambda msg: log(f"[18 path {tag}] {msg}")
+
+
+def path_o1(tree, c=PATH_O, device="cuda"):
+    """O1: quickstart on the card and on the CPU with the same draws: the
+    carry (`carry_fingerprint`), the drained keys and the transitions
+    bit-identical.  The card run's launches go to WINDOW_LAUNCHES.
+    Returns its steps."""
+    import torch
+
+    from repro_torch.core.pqueue import schedules as SCH
+    from repro_torch.core.smartpq import SmartPQConfig, carry_fingerprint
+    from repro_torch.examples import quickstart
+
+    steps = 2 * quickstart.STEPS
+    draws = SCH.step_draws(SmartPQConfig().mode_schedules, 16,
+                           quickstart.B, 256, steps=steps,
+                           generator=torch.Generator().manual_seed(
+                               c["draw_seed"]))
+    card, _ = _run_counted(torch.device(device), lambda: quickstart.quickstart(
+        device=device, draws=draws, tree=tree, log=_o_log("O1 quickstart")))
+    cpu = quickstart.quickstart(device="cpu", draws=draws, tree=tree,
+                                log=lambda msg: None)
+    got = (carry_fingerprint(card["carry"]), card["drained"],
+           card["transitions"], card["inserted"])
+    if got != (carry_fingerprint(cpu["carry"]), cpu["drained"],
+               cpu["transitions"], cpu["inserted"]):
+        raise AssertionError("path O1: quickstart differs between the card "
+                             "and the CPU")
+    log(f"[18 path O1] quickstart rerun on the CPU with the same draws: "
+        f"carry {got[0]:#010x}, {len(card['drained'])} drained keys and "
+        f"{card['transitions']} transitions bit-identical")
+    return steps
+
+
+def path_o2(c=PATH_O, device="cuda"):
+    """O2: sssp on the card and on the CPU with the same draws: every
+    run's `SSSPResult` (distances, steps, pops, wasted pops, modes,
+    transitions) bit-identical.  The card runs' launches go to
+    WINDOW_LAUNCHES.  Returns their steps."""
+    import torch
+
+    from repro_torch.core.pqueue import schedules as SCH
+    from repro_torch.core.smartpq import SmartPQConfig
+    from repro_torch.examples import sssp
+
+    # each fixed relaxed schedule's draws (m = 32) and the adaptive
+    # engine's (B = 16 * 8 + 16), from a CPU generator
+    gen = torch.Generator().manual_seed(c["draw_seed"])
+    draws = {name: SCH.step_draws((sched,), 8, 32, 256,
+                                  steps=c["draw_steps"], generator=gen)
+             for name, sched in sssp.FIXED}
+    draws[sssp.ADAPTIVE] = SCH.step_draws(
+        SmartPQConfig().mode_schedules, 8, 16 * 8 + 16, 256,
+        steps=c["draw_steps"], generator=gen)
+    card, _ = _run_counted(torch.device(device), lambda: sssp.sssp_demo(
+        device=device, draws=draws, log=_o_log("O2 sssp")))
+    cpu = sssp.sssp_demo(device="cpu", draws=draws, log=lambda msg: None)
+    for name, r in card["runs"].items():
+        for f, a in r._asdict().items():
+            b = getattr(cpu["runs"][name], f)
+            if hasattr(a, "dtype"):
+                _same_arrays(f"path O2 {name} {f}", a, b)
+            elif a != b:
+                raise AssertionError(f"path O2 {name}: {f} {a} on the card, "
+                                     f"{b} on the CPU")
+    log(f"[18 path O2] sssp rerun on the CPU with the same draws: "
+        f"{len(card['runs'])} runs' results bit-identical")
+    return sum(r.steps for r in card["runs"].values())
+
+
+def path_o3(tree, c=PATH_O, device="cuda"):
+    """O3: serve_demo as the example runs it (bf16, parameters from a CPU
+    generator seeded 0) on the card; in f32 (TF32 off) on the card and on
+    the CPU with the same parameters and scheduler draws: the mode trace,
+    the completion steps and the tokens equal; and the bf16 model's
+    prefill and teacher-forced decode logits card against CPU within
+    `J4_BF16_ULPS`, as path J4 holds them.  The bf16 run's launches go to
+    WINDOW_LAUNCHES (the f32 card run is a check, not counted).  Returns
+    its engine steps."""
+    import torch
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.examples import serve_demo
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.params import init_params
+    from repro_torch.models.registry import build_model
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("path O3: TF32 matmuls are on")
+    cfg = reduced_config(serve_demo.ARCH)
+    tree_np = params_to_numpy(init_params(
+        cfg, torch.Generator().manual_seed(0), dtype=torch.float32,
+        device="cpu"))
+    draws = serve_draws(401, c["serve_seed"])
+    params = params_from_numpy(tree_np, cfg, device=device)
+    run, _ = _run_counted(torch.device(device), lambda: serve_demo.serve_demo(
+        device=device, tree=tree, draws=draws, log=_o_log("O3 serve_demo"),
+        params=params))
+    runs = []
+    with f32_models():
+        for d, say in ((device, _o_log("O3 serve_demo f32")),
+                       ("cpu", lambda msg: None)):
+            runs.append(serve_demo.serve_demo(
+                device=d, tree=tree, draws=draws, log=say,
+                params=params_from_numpy(tree_np, cfg, device=d,
+                                         dtype=torch.float32)))
+    (g, gs), (h, hs) = ((r["engine"], r["summary"]) for r in runs)
+    if (gs["mode_trace"] != hs["mode_trace"] or g.done_step != h.done_step
+            or g.outputs != h.outputs):
+        raise AssertionError("path O3: serve_demo in f32 differs between "
+                             "the card and the CPU")
+    tok = torch.as_tensor(list(range(3, 3 + 8)), dtype=torch.int32)[None]
+    logits = []
+    for d in (device, "cpu"):
+        model = build_model(cfg, remat=False, device=d)
+        p = params_from_numpy(tree_np, cfg, device=d)
+        t = tok.to(d)
+        out = [model.prefill(p, {"tokens": t})[0]]
+        caches = init_caches(cfg, 1, 16, device=d)
+        for i in range(c["logit_steps"]):
+            lg, caches = model.decode_step(
+                p, caches, t[:, i:i + 1],
+                torch.full((1,), i, dtype=torch.int32, device=d))
+            out.append(lg)
+        logits.append([x.cpu() for x in out])
+    ulps = max(map(_bf16_ulps, *logits))
+    if ulps > J4_BF16_ULPS:
+        raise AssertionError(f"path O3: bf16 logits {ulps:.2f} ulps apart "
+                             f"(<= {J4_BF16_ULPS})")
+    log(f"[18 path O3] serve_demo in f32 rerun on the CPU: mode trace, "
+        f"{len(g.done_step)} completion steps and tokens equal; bf16 "
+        f"prefill and {c['logit_steps']} decode steps card against CPU "
+        f"{ulps:.2f} ulps (<= {J4_BF16_ULPS})")
+    return run["summary"]["steps"]
+
+
+def path_o4(c=PATH_O, device="cuda"):
+    """O4: train_demo on the card: `c["train_steps"]` steps at batch
+    `c["train_batch"]`, the restart resuming at the last checkpoint of the
+    first half, the losses falling.  Its wall time is split by the loop's
+    own clocks (steps, checkpoint saves, the restore; the rest is set-up);
+    then `c["o4_timed"]` more steps of the trained state are timed between
+    CUDA events and one is profiled by range (`profile_train_step`)."""
+    import statistics
+
+    import torch
+
+    import repro_torch.train.steps as TS
+    from repro_torch.data.loader import to_device
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.examples import train_demo
+    from repro_torch.models.params import leaves
+
+    steps, dev = c["train_steps"], torch.device(device)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = train_demo.train_demo(steps=steps, batch=c["train_batch"],
+                                device=device, log=_o_log("O4 train_demo"))
+    wall = time.perf_counter() - t0
+    want = steps // 2 // train_demo.CKPT_EVERY * train_demo.CKPT_EVERY
+    one, two = res["phase1"], res["phase2"]
+    if two["resumed_from"] != want:
+        raise AssertionError(f"path O4: resumed from {two['resumed_from']}, "
+                             f"not {want}")
+    step_s, ckpt_s = one["step_s"] + two["step_s"], one["ckpt_s"] + two[
+        "ckpt_s"]
+    params, opt = two["params"], two["opt_state"]
+    state_bytes = _bytes(params) + _bytes(opt.m) + _bytes(opt.v)
+    log(f"[18 path O4] {steps} steps in {wall:.1f}s with the restart, "
+        f"resumed from step {want}, mean loss {res['first']:.4f} -> "
+        f"{res['last']:.4f}, peak allocated "
+        f"{torch.cuda.max_memory_allocated():,} bytes")
+    log(f"[18 path O4] by the loop's clocks: {len(step_s)} steps "
+        f"{sum(step_s):.2f}s (median {statistics.median(step_s) * 1e3:.3f} "
+        f"ms, each phase's first {one['step_s'][0] * 1e3:.1f} and "
+        f"{two['step_s'][0] * 1e3:.1f} ms, max {max(step_s) * 1e3:.1f}); "
+        f"{len(ckpt_s)} checkpoint saves of {state_bytes:,} bytes "
+        f"{sum(ckpt_s):.2f}s ({min(ckpt_s):.3f}-{max(ckpt_s):.3f}s each); "
+        f"the restore {two['restore_s']:.2f}s; set-up and the rest "
+        f"{wall - sum(step_s) - sum(ckpt_s) - two['restore_s']:.2f}s")
+    cfg = train_demo.CFG_100M
+    step, model = TS.make_train_step(cfg, None, train_demo.OPT, remat=True,
+                                     device=dev)
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=train_demo.SEQ_LEN,
+                              seed=0, fixed_map=True)
+    batch = to_device(data.batch(steps, c["train_batch"]), dev)
+    params, opt, ms, _ = _timed_steps(step, params, opt, batch,
+                                      c["o4_timed"], dev)
+    params, opt, by = profile_train_step(step, model, params, opt, batch,
+                                         "O4_train_step")
+    N = sum(w.numel() for _, w in leaves(params))
+    tokens = c["train_batch"] * train_demo.SEQ_LEN
+    log(f"[18 path O4] {c['o4_timed']} more steps between CUDA events "
+        f"{statistics.median(ms):.3f} ms median ({min(ms):.3f}-"
+        f"{max(ms):.3f}); 6 N tokens {6 * N * tokens:.4g} FLOP at 989 "
+        f"TFLOP/s {6 * N * tokens / H100_BF16_FLOPS * 1e3:.3f} ms; one "
+        f"profiled step on the device by range {by_range_line(by)}")
+    return steps
+
+
+def path_o(tree, c=PATH_O, device="cuda"):
+    """Phase 18: O1-O4.  The path's launch counts are those of the
+    examples' own card runs (O1, O2 and O3's bf16 run, each counted just
+    around it; an example's step or engine tick is a window of one step),
+    not those of O3's f32 check or the CPU reruns; train_demo (O4) has no
+    hand kernel, and its steps are not windows.  Returns (launches,
+    launches inside the examples' runs, steps)."""
+    from repro_torch.kernels import ops as KO
+
+    took, steps = [], 0
+    counts_reset()
+    for part in (lambda: path_o1(tree, c, device), lambda: path_o2(c, device),
+                 lambda: path_o3(tree, c, device)):
+        t0 = time.perf_counter()
+        steps += part()
+        took.append(time.perf_counter() - t0)
+    _, in_runs = counts_read("O")
+    t0 = time.perf_counter()
+    path_o4(c, device)
+    took.append(time.perf_counter() - t0)
+    launches = {k: in_runs.get(k, 0) for k in KO.LAUNCHES}
+    log(f"[18 path O] O1 {took[0]:.1f}s, O2 {took[1]:.1f}s, O3 "
+        f"{took[2]:.1f}s, O4 {took[3]:.1f}s")
+    return launches, in_runs, steps
+
+
+# ---------------------------------------------------------------------------
+# path P: the dry run on the card
+# ---------------------------------------------------------------------------
+
+# Three cells of `launch/dryrun.py` traced on fake CUDA tensors over the
+# abstract (16, 16) production mesh: a serving cell the reference's own
+# check compiles (tests/device_scripts/dryrun_cell_check.py), the
+# llama3.2-3b training cell whose attention runs replicated over 'model',
+# and the SSM's long-context decode.
+PATH_P = (dict(arch="gemma-2b", shape_name="decode_32k",
+               serve_tp_only=True),
+          dict(arch="llama3.2-3b", shape_name="train_4k"),
+          dict(arch="mamba2-780m", shape_name="long_500k"))
+P_DEVICE_FIELDS = ("device", "device_name", "device_memory_bytes",
+                   "fits_device_memory", "trace_s")
+
+
+def path_p(cells=PATH_P, device="cuda"):
+    """Phase 19: each cell traced on the card (fake CUDA tensors) and on
+    the CPU: the records equal but for the device fields, the fit judged
+    against the card's `total_memory`, no kernel launched.  Returns
+    (launches, launches inside the traces, cells)."""
+    import torch
+
+    from repro_torch.kernels import ops as KO
+    from repro_torch.launch import dryrun
+
+    counts_reset()
+    total = torch.cuda.get_device_properties(torch.device(device)
+                                             ).total_memory
+    for cell in cells:
+        card = dryrun.lower_cell(multi_pod=False, device=device, **cell)
+        cpu = dryrun.lower_cell(multi_pod=False, device="cpu", **cell)
+        same = {k: v for k, v in card.items() if k not in P_DEVICE_FIELDS}
+        if same != {k: v for k, v in cpu.items()
+                    if k not in P_DEVICE_FIELDS}:
+            raise AssertionError(f"path P {cell}: the card's record differs "
+                                 f"from the CPU's")
+        peak = card["memory_per_device"]["peak_estimate_bytes"]
+        if (card["status"] != "ok" or card["device_memory_bytes"] != total
+                or card["fits_device_memory"] != (peak <= total)):
+            raise AssertionError(f"path P {cell}: {card}")
+        log(f"[19 path P] {cell['arch']} {cell['shape_name']}"
+            f"{' serve_tp_only' if cell.get('serve_tp_only') else ''}: "
+            f"trace {card['trace_s']}s on the card ({cpu['trace_s']}s on "
+            f"the CPU), peak {peak / 2**30:.2f} GiB a device against "
+            f"{card['device_name']}'s {total / 2**30:.2f} GiB ({total:,} "
+            f"bytes) "
+            f"({'fits' if card['fits_device_memory'] else 'over'}), "
+            f"{card['flops_per_device']:.4e} dot FLOPs, collectives "
+            f"{card['collective_bytes_by_op']}; the record equals the "
+            f"CPU's but for {', '.join(P_DEVICE_FIELDS)}")
+    launches = dict(KO.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"path P launched kernels: {launches}")
+    return launches, {}, len(cells)
+
+
+# ---------------------------------------------------------------------------
 # main
 # ---------------------------------------------------------------------------
 
@@ -5110,13 +5451,22 @@ def main() -> int:
     log(f"[17 path N] {time.perf_counter() - t0:.1f}s | launches "
         f"{path_n_counts[0]} (inside its sharded engine runs, "
         f"{path_n_counts[2]} ticks)")
-    log(f"[18 done] {time.perf_counter() - t_start:.1f}s in all")
+    t0 = time.perf_counter()
+    path_o_counts = path_o(tree)
+    log(f"[18 path O] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_o_counts[0]} ({path_o_counts[2]} example steps)")
+    t0 = time.perf_counter()
+    path_p_counts = path_p()
+    log(f"[19 path P] {time.perf_counter() - t0:.1f}s | launches "
+        f"{path_p_counts[0]}")
+    log(f"[20 done] {time.perf_counter() - t_start:.1f}s in all")
     print(json.dumps(kernels_line(records, {
         "A": path_a_counts, "B": path_b_counts, "C": path_c_counts,
         "D": path_d_counts, "E": path_e_counts, "F": path_f_counts,
         "G": path_g_counts, "H": path_h_counts, "I": path_i_counts,
         "J": path_j_counts, "K": path_k_counts, "L": path_l_counts,
-        "M": path_m_counts, "N": path_n_counts},
+        "M": path_m_counts, "N": path_n_counts, "O": path_o_counts,
+        "P": path_p_counts},
         phase2, floor)))
     print(card)
     print(json.dumps({"ok": True, "device": {

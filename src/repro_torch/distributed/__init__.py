@@ -6,6 +6,7 @@ from repro_torch.distributed.mesh import (  # noqa: F401
     AXIS_DATA,
     AXIS_MODEL,
     AXIS_POD,
+    AbstractMesh,
     Mesh,
     batch_axes,
     local_fits,

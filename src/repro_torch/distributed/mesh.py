@@ -25,7 +25,9 @@ host memory: the mesh chooses this from the backend it was given, and
 
 `spawn` runs a function on every rank of a mesh, one process each, and
 returns each rank's result as numpy arrays: the counterpart of `shard_map`
-over virtual devices.
+over virtual devices.  `AbstractMesh` has a mesh's geometry and no process
+behind it: its collectives take fake tensors and move nothing, for a
+step traced ahead of time (`launch/dryrun.py`).
 """
 
 from __future__ import annotations
@@ -70,42 +72,25 @@ class _Group:
     sorted_pos: Dict[int, int]  # global rank -> its rank in `group`
 
 
-class Mesh:
-    """This process's view of a named-axis mesh: its rank, device and
-    backend, one process group per tuple of axes, and the collectives.
-    Made by `make_mesh`."""
+class MeshGeometry:
+    """A named-axis mesh's geometry as one device sees it: the axes and
+    their sizes, this device's rank and coordinates, and the collectives
+    it issued, counted by (kind, axis tuple) in `counts` and their payload
+    bytes in `bytes`."""
 
     def __init__(self, shape: Sequence[int], axes: Sequence[str], rank: int,
-                 device: torch.device, backend: str, owns_group: bool):
+                 device: torch.device):
+        if len(shape) != len(axes) or len(set(axes)) != len(axes):
+            raise ValueError(f"mesh shape {tuple(shape)} and axes "
+                             f"{tuple(axes)} must pair up, names unique")
         self.axis_names: Axes = tuple(axes)
         self.shape: Dict[str, int] = dict(zip(axes, (int(n) for n in shape)))
         self.size = math.prod(self.shape.values())
         self.rank = rank
         self.device = device
-        self.backend = backend
-        self.staged = backend == "gloo" and device.type == "cuda"
         self.counts: Counter = Counter()
         self.bytes: Counter = Counter()  # payload bytes this rank sent in
-        self._owns_group = owns_group
         self._coords = dict(zip(axes, _unravel(rank, shape)))
-        self._groups: Dict[frozenset, Tuple[object, List[int]]] = {}
-        self._by_axes: Dict[Axes, _Group] = {}
-        # new_group is collective: every rank makes every group, in order.
-        for k in range(1, len(axes) + 1):
-            for subset in itertools.combinations(axes, k):
-                rest = [a for a in axes if a not in subset]
-                for fixed in itertools.product(
-                        *(range(self.shape[a]) for a in rest)):
-                    ranks = sorted(self._rank_of({**dict(zip(rest, fixed)),
-                                                  **dict(zip(subset, c))})
-                                   for c in itertools.product(
-                                       *(range(self.shape[a])
-                                         for a in subset)))
-                    group = dist.new_group(ranks, backend=backend)
-                    if rank in ranks:
-                        self._groups[frozenset(subset)] = (group, ranks)
-
-    # -- geometry ------------------------------------------------------------
 
     def _rank_of(self, coords: Dict[str, int]) -> int:
         r = 0
@@ -124,6 +109,48 @@ class Mesh:
         for a in _axes(axes):
             r = r * self.shape[a] + self._coords[a]
         return r
+
+    def _count(self, kind: str, axes, x: torch.Tensor) -> Axes:
+        axes = _axes(axes)
+        if x.device != self.device:
+            raise ValueError(f"{kind}: tensor on {x.device}, mesh on "
+                             f"{self.device}")
+        self.counts[(kind, axes)] += 1
+        self.bytes[(kind, axes)] += x.numel() * x.element_size()
+        return axes
+
+    def reset_counts(self) -> None:
+        self.counts.clear()
+        self.bytes.clear()
+
+
+class Mesh(MeshGeometry):
+    """This process's view of a named-axis mesh: its rank, device and
+    backend, one process group per tuple of axes, and the collectives.
+    Made by `make_mesh`."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str], rank: int,
+                 device: torch.device, backend: str, owns_group: bool):
+        super().__init__(shape, axes, rank, device)
+        self.backend = backend
+        self.staged = backend == "gloo" and device.type == "cuda"
+        self._owns_group = owns_group
+        self._groups: Dict[frozenset, Tuple[object, List[int]]] = {}
+        self._by_axes: Dict[Axes, _Group] = {}
+        # new_group is collective: every rank makes every group, in order.
+        for k in range(1, len(axes) + 1):
+            for subset in itertools.combinations(axes, k):
+                rest = [a for a in axes if a not in subset]
+                for fixed in itertools.product(
+                        *(range(self.shape[a]) for a in rest)):
+                    ranks = sorted(self._rank_of({**dict(zip(rest, fixed)),
+                                                  **dict(zip(subset, c))})
+                                   for c in itertools.product(
+                                       *(range(self.shape[a])
+                                         for a in subset)))
+                    group = dist.new_group(ranks, backend=backend)
+                    if rank in ranks:
+                        self._groups[frozenset(subset)] = (group, ranks)
 
     def _group(self, axes: Axes) -> _Group:
         if axes not in self._by_axes:
@@ -145,12 +172,7 @@ class Mesh:
     # -- collectives ---------------------------------------------------------
 
     def _begin(self, kind: str, axes, x: torch.Tensor):
-        axes = _axes(axes)
-        if x.device != self.device:
-            raise ValueError(f"{kind}: tensor on {x.device}, mesh on "
-                             f"{self.device}")
-        self.counts[(kind, axes)] += 1
-        self.bytes[(kind, axes)] += x.numel() * x.element_size()
+        axes = self._count(kind, axes, x)
         payload = x.contiguous()
         return self._group(axes), payload.cpu() if self.staged else payload
 
@@ -243,10 +265,6 @@ class Mesh:
 
     # -- lifetime ------------------------------------------------------------
 
-    def reset_counts(self) -> None:
-        self.counts.clear()
-        self.bytes.clear()
-
     def close(self) -> None:
         """Tear the process group down if this mesh set it up."""
         if self._owns_group and dist.is_initialized():
@@ -258,6 +276,93 @@ class Mesh:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+# The HLO collective each `Mesh` collective lowers to
+# (src/repro/utils/hlo.py:16-17 counts their output bytes).
+HLO_COLLECTIVE = {"all_gather": "all-gather", "psum": "all-reduce",
+                  "pmax": "all-reduce", "psum_scatter": "reduce-scatter",
+                  "all_to_all": "all-to-all", "ppermute": "collective-permute"}
+
+
+class AbstractMesh(MeshGeometry):
+    """A mesh of `shape` over `axes` with no process group behind it: the
+    port's form of the reference's ahead-of-time lowering on virtual
+    devices (`launch/dryrun.py`).  This process is at coordinate 0 of
+    every axis.  Each collective takes a fake tensor
+    (`torch._subclasses.FakeTensorMode`) and returns one of its output's
+    shape and dtype, moving nothing; it is counted in `counts` and `bytes`
+    as `Mesh` counts it, and its output bytes in `op_bytes` under the HLO
+    name it lowers to (`HLO_COLLECTIVE`).  A real tensor is refused: the
+    values a fake collective gives mean nothing."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 device=None):
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        super().__init__(shape, axes, 0, dev)
+        self.op_bytes: Counter = Counter()
+
+    @property
+    def op_counts(self) -> Counter:
+        """The calls under the HLO name each lowers to."""
+        out: Counter = Counter()
+        for (kind, _), n in self.counts.items():
+            out[HLO_COLLECTIVE[kind]] += n
+        return out
+
+    def _fake(self, kind: str, axes, x: torch.Tensor, shape) -> torch.Tensor:
+        from torch._subclasses.fake_tensor import is_fake
+
+        if not is_fake(x):
+            raise ValueError(f"{kind}: an abstract mesh takes fake tensors "
+                             f"only (torch._subclasses.FakeTensorMode)")
+        self._count(kind, axes, x)
+        out = x.new_empty(shape)
+        self.op_bytes[HLO_COLLECTIVE[kind]] += out.numel() * x.element_size()
+        return out
+
+    def all_gather(self, x, axes, axis: int = 0, tiled: bool = False):
+        shape = list(x.shape)
+        n = self.axis_size(axes)
+        if tiled:
+            shape[axis] *= n
+        else:
+            shape.insert(axis, n)
+        return self._fake("all_gather", axes, x, shape)
+
+    def psum(self, x, axes):
+        return self._fake("psum", axes, x, x.shape)
+
+    def pmax(self, x, axes):
+        return self._fake("pmax", axes, x, x.shape)
+
+    def psum_scatter(self, x, axes, scatter_dimension: int = 0,
+                     tiled: bool = True):
+        n = self.axis_size(axes)
+        shape = list(x.shape)
+        if shape[scatter_dimension] % n:
+            raise ValueError(f"psum_scatter: dimension {scatter_dimension} "
+                             f"of {tuple(shape)} does not split {n} ways")
+        shape[scatter_dimension] //= n
+        if not tiled:
+            del shape[scatter_dimension]
+        return self._fake("psum_scatter", axes, x, shape)
+
+    def all_to_all(self, x, axes):
+        n = self.axis_size(axes)
+        if x.shape[0] % n:
+            raise ValueError(f"all_to_all: {x.shape[0]} rows do not split "
+                             f"{n} ways")
+        return self._fake("all_to_all", axes, x, x.shape)
+
+    def ppermute(self, x, axes, perm):
+        return self._fake("ppermute", axes, x, x.shape)
+
+    def reset_counts(self) -> None:
+        super().reset_counts()
+        self.op_bytes.clear()
 
 
 def _unravel(rank: int, shape: Sequence[int]) -> Tuple[int, ...]:

@@ -98,12 +98,23 @@ def _keep(entry, keep: Callable[[str], bool]):
     return entry if entry is None or keep(entry) else None
 
 
+@dataclasses.dataclass(frozen=True)
+class ReplicatedRules(ShardingRules):
+    """`ShardingRules` that also name, in `replicated`, mesh axes over
+    which every device holds the same blocks and repeats the same work:
+    what a global batch of 1 leaves to no other rule (`replicate_unused`).
+    The reference's GSPMD replicates such an axis without being told."""
+
+    replicated: P = P()
+
+
 def _map_fields(rules: ShardingRules, fix, fields=None) -> ShardingRules:
-    return ShardingRules(**{
-        f.name: (fix(getattr(rules, f.name))
-                 if fields is None or f.name in fields
-                 else getattr(rules, f.name))
-        for f in dataclasses.fields(ShardingRules)})
+    """`rules` with `fix` applied to the specs of `fields` (every
+    `ShardingRules` field when None)."""
+    return dataclasses.replace(rules, **{
+        f.name: fix(getattr(rules, f.name))
+        for f in dataclasses.fields(ShardingRules)
+        if fields is None or f.name in fields})
 
 
 def strip_pod(rules: ShardingRules, mesh) -> ShardingRules:
@@ -118,18 +129,39 @@ def check_rules(rules: ShardingRules, mesh) -> ShardingRules:
     """`rules` unchanged if they fit `mesh`; a ValueError if a spec names
     an axis the mesh lacks (placement would fail) or a mesh axis wider
     than 1 is named by no spec (its ranks would repeat each other's
-    work)."""
-    named_axes = {a for f in dataclasses.fields(ShardingRules)
-                  for a in spec_axes(getattr(rules, f.name))}
+    work) unless `ReplicatedRules.replicated` names it."""
+    named_axes = _named_axes(rules)
     missing = sorted(named_axes - set(mesh.axis_names))
     if missing:
         raise ValueError(f"the sharding rules name {missing}, which the mesh "
                          f"{tuple(mesh.axis_names)} lacks")
-    unused = [a for a in mesh.axis_names
-              if mesh.shape[a] > 1 and a not in named_axes]
+    unused = _unused_axes(rules, mesh)
     if unused:
         raise ValueError(f"no sharding rule uses the mesh axes {unused}")
     return rules
+
+
+def _named_axes(rules: ShardingRules) -> set:
+    return {a for f in dataclasses.fields(rules)
+            for a in spec_axes(getattr(rules, f.name))}
+
+
+def _unused_axes(rules: ShardingRules, mesh) -> list:
+    named = _named_axes(rules)
+    return [a for a in mesh.axis_names if mesh.shape[a] > 1
+            and a not in named]
+
+
+def replicate_unused(rules: ShardingRules, mesh) -> ShardingRules:
+    """`rules` with the mesh axes wider than 1 that no spec names declared
+    replicated (`ReplicatedRules`): `check_rules` then accepts them."""
+    unused = _unused_axes(rules, mesh)
+    if not unused:
+        return rules
+    return ReplicatedRules(
+        **{f.name: getattr(rules, f.name)
+           for f in dataclasses.fields(ShardingRules)},
+        replicated=P(*unused))
 
 
 ACT_FIELDS = ("act_btd", "act_seq", "act_ffn", "logits", "tokens",

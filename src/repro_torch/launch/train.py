@@ -12,6 +12,8 @@ bigram task (`SyntheticLMDataset(fixed_map=True)`):
 
 The reference's `--dry-devices` sets an XLA flag for an ahead-of-time
 compile on a virtual mesh; the port has no counterpart and refuses it.
+The port's ahead-of-time look at a mesh is the dry run,
+`python -m repro_torch.launch.dryrun`.
 As in the reference, `--microbatches` is parsed but not passed on.
 """
 
@@ -41,7 +43,8 @@ def main(argv=None):
     if args.dry_devices:
         ap.error("--dry-devices sets an XLA flag for an ahead-of-time "
                  "compile on a virtual mesh; the PyTorch port has no "
-                 "counterpart")
+                 "counterpart (its dry run: python -m "
+                 "repro_torch.launch.dryrun)")
 
     from repro_torch.configs.registry import get_config, reduced_config
     from repro_torch.data.synthetic import SyntheticLMDataset

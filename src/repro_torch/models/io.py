@@ -1,11 +1,13 @@
-"""Decode caches: their shapes for every family, and zero caches on a device.
+"""Decode caches and the steps' input trees: their shapes for every family,
+zero caches on a device, and shape-only stand-ins for the dry run.
 
 Counterpart of src/repro/models/io.py.  `_cache_shapes` is the reference's
 shape arithmetic for all six families; `init_caches` builds real zero
 caches (bf16 by default, as the reference's) on `device`, the card unless
-the caller names another.  The dry-run stand-ins (`cache_specs`,
-`input_specs`) wait for `launch/dryrun.py`'s slice (ROADMAP queue 1 item
-8.6).
+the caller names another.  `cache_specs` and `input_specs` are the
+reference's `ShapeDtypeStruct` trees as tensors on the `meta` device: the
+same shapes and dtypes, no storage (`launch/dryrun.py` takes each rank's
+block of them as a fake tensor).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.distributed.sharding import local_shape
 from repro_torch.utils.hostsync import resolve_device
 
@@ -87,3 +89,45 @@ def init_caches(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
             shape = local_shape(shape, mesh, specs[name])
         out[name] = torch.zeros(shape, dtype=dt, device=dev)
     return out
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def cache_specs(cfg: ModelConfig, B: int, S_max: int, dtype=torch.bfloat16,
+                kv_int8: bool = False) -> Tree:
+    """`init_caches`' tree as `meta` tensors."""
+    return {name: _meta(shape, dt) for name, (shape, dt)
+            in _cache_shapes(cfg, B, S_max, dtype, kv_int8).items()}
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig,
+                kv_int8: bool = False) -> Tree:
+    """The step function's input tree as `meta` tensors: tokens (and
+    labels to train) of the global batch, the enc-dec family's
+    `enc_embeds` and the VLM's `image_embeds`, and to decode the lengths
+    and caches (int8 K/V only for the dense and moe families)."""
+    B, S = shape.global_batch, shape.seq_len
+    D = cfg.d_model
+
+    def tok(*s):
+        return _meta(s, torch.int32)
+
+    def emb(*s):
+        return _meta(s, torch.bfloat16)
+
+    if shape.kind in ("train", "prefill"):
+        batch: Tree = {"tokens": tok(B, S)}
+        if shape.kind == "train":
+            batch["labels"] = tok(B, S)
+        if cfg.family == "encdec":
+            batch["enc_embeds"] = emb(B, S, D)  # conv frontend stubbed
+        if cfg.family == "vlm":
+            batch["image_embeds"] = emb(B, cfg.n_image_tokens, D)
+        return batch
+    if shape.kind == "decode":
+        use_int8 = kv_int8 and cfg.family in ("dense", "moe")
+        return {"tokens": tok(B, 1), "lengths": tok(B),
+                "caches": cache_specs(cfg, B, S, kv_int8=use_int8)}
+    raise ValueError(shape.kind)

@@ -63,7 +63,9 @@ def run(
     device=None,
 ) -> Dict[str, Any]:
     """Train; returns the summary (losses, steps_done, resumed_from,
-    events, params, opt_state)."""
+    events, params, opt_state, and the loop's own seconds: `step_s` each
+    step's, its loss read back included, `ckpt_s` each checkpoint save's
+    until it returns, `restore_s` the restore's or None)."""
     train_step, model = make_train_step(cfg, mesh, opt_cfg, remat=True,
                                         device=device)
     dev = model.device
@@ -78,14 +80,16 @@ def run(
                                               model.specs)
         state_sh = {"params": p_sh, "opt": o_sh}
     start_step = 0
-    resumed_from = None
+    resumed_from = restore_s = None
 
     if loop.ckpt_dir and ckpt.latest_step(loop.ckpt_dir) is not None:
+        t0 = time.time()
         state = ckpt.restore(loop.ckpt_dir,
                              {"params": params, "opt": opt_state},
                              shardings=state_sh)
         params, opt_state = state["params"], state["opt"]
         start_step = int(opt_state.step)
+        restore_s = time.time() - t0
         resumed_from = start_step
 
     data = data or SyntheticLMDataset(vocab=cfg.vocab, seq_len=128,
@@ -97,6 +101,8 @@ def run(
     watchdog = StragglerWatchdog(threshold=loop.straggler_threshold)
     guard = PreemptionGuard(install=install_signals)
     losses: List[float] = []
+    step_s: List[float] = []
+    ckpt_s: List[float] = []
     events: List[dict] = []
     pending_ckpt = None
 
@@ -112,6 +118,7 @@ def run(
             params, opt_state, metrics = train_step(params, opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.time() - t0
+            step_s.append(dt)
             ev = watchdog.observe(step, dt)
             if ev:
                 events.append({"kind": "straggler", **ev})
@@ -122,6 +129,7 @@ def run(
                 step % loop.ckpt_every == 0 or guard.requested
             )
             if want_ckpt:
+                t0 = time.time()
                 if pending_ckpt is not None:
                     pending_ckpt.join()
                 pending_ckpt = ckpt.save(
@@ -131,6 +139,7 @@ def run(
                     async_write=loop.async_ckpt,
                     shardings=state_sh,
                 )
+                ckpt_s.append(time.time() - t0)
             if guard.requested:
                 events.append({"kind": "preempted", "step": step})
                 break
@@ -147,4 +156,7 @@ def run(
         "events": events,
         "params": params,
         "opt_state": opt_state,
+        "step_s": step_s,
+        "ckpt_s": ckpt_s,
+        "restore_s": restore_s,
     }

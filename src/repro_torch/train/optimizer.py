@@ -35,7 +35,9 @@ dimension is sharded keeps its scales whole, as the spec says
 256-value blocks, it quantizes them and the scales are gathered over the
 last dimension's axes; where a block spans ranks (a local width dividing
 256), each rank's |max| is gathered and the block's max taken over the
-ranks it spans, so every rank quantizes with the scale one process
+ranks it spans; where a rank's block straddles the blocks' boundaries
+(any other width), each rank's |max| over its part of every block is
+pmax'd over the axes.  Every rank quantizes with the scale one process
 would.
 """
 
@@ -165,10 +167,6 @@ def adamw_init(params, cfg: AdamWConfig, mesh=None, specs=None) -> OptState:
             full = _global_last(p, spec, mesh)
             if full % BLOCK:
                 return x
-            if p.shape[-1] % BLOCK and BLOCK % p.shape[-1]:
-                raise ValueError(
-                    f"int8 moment: a local width of {p.shape[-1]} neither "
-                    f"holds whole {BLOCK}-value blocks nor divides one")
             scale = torch.zeros(*p.shape[:-1], full // BLOCK,
                                 dtype=torch.float32, device=p.device)
             return x.to(torch.int8), scale
@@ -230,6 +228,14 @@ class _ShardedQ8:
         self.mesh, self.axes = mesh, axes
         self.n, self.r = mesh.axis_size(axes), mesh.device_rank(axes)
         self.width = width
+        # a local width that neither holds whole blocks nor divides one
+        # (jamba's in_proj: 1040 columns a rank on a 16-wide model axis)
+        self.straddles = bool(width % BLOCK and BLOCK % width)
+
+    def _blocks_of(self, x: torch.Tensor) -> torch.Tensor:
+        """The global block of each local value of the last dimension."""
+        return torch.div(self.r * self.width + torch.arange(
+            self.width, device=x.device), BLOCK, rounding_mode="floor")
 
     def _mine(self, scale):
         """This rank's scales, one a local value's block: (..., 1) or
@@ -242,12 +248,26 @@ class _ShardedQ8:
 
     def decode(self, e) -> torch.Tensor:
         q, scale = e
+        if self.straddles:
+            return q.float() * scale.index_select(-1, self._blocks_of(q))
         mine = self._mine(scale)
         if self.width % BLOCK == 0:
             return _dq8(q, mine)
         return q.float() * mine
 
     def encode(self, x: torch.Tensor):
+        if self.straddles:
+            # each rank's |max| over its part of every block, the max over
+            # the ranks (a rank's missing parts count 0, under any |x|)
+            idx = self._blocks_of(x)
+            part = torch.zeros(*x.shape[:-1], self.n * self.width // BLOCK,
+                               dtype=torch.float32, device=x.device)
+            part = part.scatter_reduce(-1, idx.expand(x.shape),
+                                       torch.abs(x), "amax")
+            scale = self.mesh.pmax(part, self.axes) / 127.0 + 1e-20
+            q = torch.clamp(torch.round(x / scale.index_select(-1, idx)),
+                            -127, 127)
+            return q.to(torch.int8), scale
         if self.width % BLOCK == 0:
             q, s = _q8(x)
             return q, self.mesh.all_gather(s.contiguous(), self.axes,

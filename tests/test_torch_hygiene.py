@@ -296,3 +296,37 @@ def test_chip_smoke_gives_no_result_without_card_or_repo(tmp_path):
     for out in runs:
         assert out.returncode != 0
         assert '"ok"' not in out.stdout
+
+
+def test_dry_run_and_examples_load_no_jax_and_run_on_the_card_by_default():
+    """`repro_torch.launch.dryrun`, `repro_torch.launch.mesh` and the four
+    examples load neither jax nor the JAX package; the production mesh, the
+    dry run and each example go to the card unless the caller names
+    another device, and raise without one rather than fall back to the
+    CPU."""
+    code = (
+        "import sys\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.mesh\n"
+        "from repro_torch.examples import (quickstart, serve_demo, sssp, "
+        "train_demo)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', "
+        "'repro')]\n"
+        "print(len(bad), bad[:5])\n"
+    )
+    out = _python(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+    from repro_torch.examples import quickstart, serve_demo, sssp, train_demo
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+
+    if torch.cuda.is_available():
+        assert make_production_mesh().device.type == "cuda"
+        return
+    for make in (make_production_mesh,
+                 lambda: dryrun.lower_cell("gemma-2b", "decode_32k", False),
+                 quickstart.quickstart, sssp.sssp_demo,
+                 serve_demo.serve_demo,
+                 lambda: train_demo.train_demo(steps=2)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()

@@ -557,3 +557,58 @@ def full_width_training(mesh, arch, batch, seq_len, steps, seed=0):
         losses.append(float(m["loss"]))
     return {"losses": losses, "peak": torch.cuda.max_memory_allocated(dev),
             "card": str(dev)}
+
+
+def step_collectives(mesh, archs, B=4, S=16):
+    """The collectives, by (kind, axes), of one train step (int8 first
+    moments) and one decode step of each reduced arch on this rank, built
+    as the dry run builds a cell (`launch.dryrun.build_step`, zero
+    blocks: no collective depends on the values).  On an `AbstractMesh`
+    call it inside a `FakeTensorMode`."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.launch import dryrun
+    from repro_torch.train.optimizer import AdamWConfig
+
+    out = {}
+    for arch in archs:
+        cfg = reduced_config(arch)
+        for kind in ("train", "decode"):
+            shape = ShapeConfig(kind, S, B, kind)
+            step, args = dryrun.build_step(
+                cfg, shape, mesh, dryrun.cell_rules(cfg, shape, mesh),
+                AdamWConfig(state_dtype="int8"))
+            mesh.reset_counts()
+            step(*args)
+            out[f"{arch}/{kind}"] = _counts(mesh)
+    return out
+
+
+def straddled_int8(mesh, p, g, gnorm, steps):
+    """`steps` AdamW updates (int8 first moments) of one (rows, cols) leaf
+    whose columns are sharded over 'model', every rank's block of the
+    columns: its parameters and its moments' q and scales (whole) after
+    each step, as numpy."""
+    from repro_torch.distributed.sharding import P, local_shard
+    from repro_torch.train import optimizer as O
+
+    spec = P(None, "model")
+    opt = O.AdamWConfig(lr=1e-2, state_dtype="int8")
+    params = {"w": local_shard(torch.as_tensor(p), mesh, spec).clone()}
+    st = O.adamw_init(params, opt, mesh, {"w": spec})
+    out = []
+    for gi in g:
+        grads = {"w": local_shard(torch.as_tensor(gi), mesh, spec)}
+        params, st = O.adamw_update(params, grads, st, opt, mesh=mesh,
+                                    specs={"w": spec},
+                                    gnorm=torch.tensor(gnorm))
+        q, scale = st.m["w"]
+        out.append((params["w"].clone(), q.clone(), scale.clone()))
+    return out
+
+
+def dryrun_ranks(mesh, archs, p, g, gnorm):
+    """tests/test_torch_dryrun.py's rank work in one spawn:
+    `step_collectives` and `straddled_int8`."""
+    return {"collectives": step_collectives(mesh, archs),
+            "straddled": straddled_int8(mesh, p, g, gnorm, len(g))}
