@@ -218,7 +218,7 @@ def _host_leaves(leaves) -> List[np.ndarray]:
     if on_device:
         ts = [_storable(leaves[i]).contiguous() for i in on_device]
         blob = host_array(torch.cat([t.reshape(-1).view(torch.uint8)
-                                     for t in ts]))
+                                     for t in ts]), "persist.host_tree")
         at = 0
         for i, t in zip(on_device, ts):
             n = t.numel() * t.element_size()

@@ -270,7 +270,8 @@ def compact_tail(state: PQState) -> PQState:
     if state.tail_width == 0:
         return state
     U = min(state.tail_width, TAIL_BUCKET_WIDTH)
-    if host_bool(torch.all(state.tail_size - state.tail_sorted <= U)):
+    if host_bool(torch.all(state.tail_size - state.tail_sorted <= U),
+                 "local.compact_tail"):
         return _bucket_merge_tail(state)
     return _full_sort_tail(state)
 
@@ -318,7 +319,7 @@ def tiered_insert(state: PQState, rk: Tensor, rv: Tensor,
         | torch.any(state.tail_start + state.tail_size + counts > T)
         | torch.any(state.next_seq + counts > SEQ_RENUMBER_THRESHOLD)
     )
-    if host_bool(need_compact):
+    if host_bool(need_compact, "local.insert_compact"):
         state = compact_tail(state)
     rq = torch.where(valid, state.next_seq[:, None] + col, 0)
 
@@ -352,7 +353,8 @@ def tiered_insert(state: PQState, rk: Tensor, rv: Tensor,
     n_append = n_tail_inc + n_spill
     valid_total = state.head_size + state.tail_size + counts
 
-    if not host_bool(torch.any(state.tail_size + n_append > T)):
+    if not host_bool(torch.any(state.tail_size + n_append > T),
+                     "local.insert_spill"):
         # Gather append: the combined append run is trun ++ spill (width
         # 2R); tail slot t takes arun[t - window end] inside the append
         # window and keeps its value elsewhere.
@@ -445,7 +447,8 @@ def refill_head(state: PQState) -> PQState:
     compact the tail if appends left a bucket, then consume the run."""
     if state.tail_width == 0:
         return state
-    if host_bool(torch.any(state.tail_size > state.tail_sorted)):
+    if host_bool(torch.any(state.tail_size > state.tail_sorted),
+                 "local.refill_head"):
         state = compact_tail(state)
     return _consume_run(state)
 

@@ -66,7 +66,7 @@ def insert(
     else:
         mask = mask & (keys < INF_KEY)
     S = state.num_shards
-    if not host_bool(torch.any(mask)):
+    if not host_bool(torch.any(mask), "ops.insert"):
         return state, torch.zeros((S,), dtype=torch.int32, device=state.device)
     if capacity_factor is None:
         rk, rv, counts = route_dense(keys, vals, mask, S)

@@ -138,7 +138,8 @@ def ensure_head(state: PQState, m: int, pred: Optional[bool] = None) -> PQState:
     if state.tail_width == 0:
         return state
     if pred is None:
-        pred = host_bool(head_refill_pred(state, m))
+        pred = host_bool(head_refill_pred(state, m),
+                         "schedules.ensure_head")
     return L.refill_head_guarded(state, pred)
 
 

@@ -74,6 +74,7 @@ from repro_torch.core.pqueue.state import (
     make_state,
     state_fingerprint,
 )
+from repro_torch.obs import NULL, Observability
 from repro_torch.utils.hostsync import host_bool, host_int, resolve_device
 
 MODE_OBLIVIOUS = CLASS_OBLIVIOUS  # 0: base algorithm directly (spray)
@@ -150,12 +151,15 @@ def _i32(x) -> Tensor:
 class SmartPQ:
     """Adaptive PQ facade: construct once (trains or accepts a tree), then
     drive `step` or `run_window`.  Runs on the card unless `device` names
-    another (the tests pass ``device="cpu"``)."""
+    another (the tests pass ``device="cpu"``); `obs` is the observability
+    bundle whose tracer records the steps (disabled `NULL` by default)."""
 
     def __init__(self, config: SmartPQConfig = SmartPQConfig(),
-                 tree: Optional[DecisionTree] = None, device=None):
+                 tree: Optional[DecisionTree] = None, device=None,
+                 obs: Optional[Observability] = None):
         self.device = resolve_device(device)
         self.config = config
+        self.obs = obs if obs is not None else NULL
         if tree is None:
             X, y = make_training_set()
             tree = train_tree(X, y, NUM_CLASSES, max_depth=8)
@@ -205,8 +209,21 @@ class SmartPQ:
         sorted insert log row; `mode_override` (-1 = none) pins the mode for
         this step.
         Returns (carry, DeleteResult) and, with `return_features`, the
-        step's (4,) float32 classifier features."""
+        step's (4,) float32 classifier features.
+
+        Traced as a ``pq.step`` span (cat ``pq``) holding ``pq.decide``
+        (statistics and the decision), ``pq.eliminate``, ``pq.insert``,
+        ``pq.refill`` and ``pq.delete_min`` (the mode's read and its
+        deleteMin)."""
+        with self.obs.tracer.span("pq.step", "pq"):
+            return self._step(carry, ops, keys, vals, draws, num_clients,
+                              presorted, mode_override, return_features,
+                              generator)
+
+    def _step(self, carry, ops, keys, vals, draws, num_clients, presorted,
+              mode_override, return_features, generator):
         c = self.config
+        tr = self.obs.tracer
         state, stats = carry
         dev = state.device
         B = ops.shape[0]
@@ -215,72 +232,81 @@ class SmartPQ:
         num_clients = torch.as_tensor(num_clients, dtype=torch.int32,
                                       device=dev)
 
-        ins_mask = ops == OP_INSERT
-        n_rejected = stats.rejected
-        if keys.dtype.is_floating_point:
-            keys, bad_keys = O.sanitize_keys(keys)
-            n_rejected = n_rejected + _i32(torch.sum(bad_keys & ins_mask))
-            ins_mask = ins_mask & ~bad_keys
-        b_ins = _i32(torch.sum(ins_mask))
-        b_del = _i32(torch.sum(ops == OP_DELETE_MIN))
+        with tr.span("pq.decide", "pq"):
+            ins_mask = ops == OP_INSERT
+            n_rejected = stats.rejected
+            if keys.dtype.is_floating_point:
+                keys, bad_keys = O.sanitize_keys(keys)
+                n_rejected = n_rejected + _i32(torch.sum(bad_keys & ins_mask))
+                ins_mask = ins_mask & ~bad_keys
+            b_ins = _i32(torch.sum(ins_mask))
+            b_del = _i32(torch.sum(ops == OP_DELETE_MIN))
 
-        batch_min = torch.min(torch.where(ins_mask, keys, INF_KEY))
-        batch_max = torch.max(torch.where(ins_mask, keys, 0))
-        n_insert = stats.n_insert + b_ins
-        n_delete = stats.n_delete + b_del
-        min_key = torch.minimum(stats.min_key, batch_min)
-        max_key = torch.maximum(stats.max_key, batch_max)
+            batch_min = torch.min(torch.where(ins_mask, keys, INF_KEY))
+            batch_max = torch.max(torch.where(ins_mask, keys, 0))
+            n_insert = stats.n_insert + b_ins
+            n_delete = stats.n_delete + b_del
+            min_key = torch.minimum(stats.min_key, batch_min)
+            max_key = torch.maximum(stats.max_key, batch_max)
 
-        # -- decision (on the device) ----------------------------------------
-        do_decide = (stats.step % c.decision_interval) == 0
-        total_ops = torch.clamp(n_insert + n_delete, min=1)
-        key_range = torch.where(min_key <= max_key,
-                                torch.clamp(max_key - min_key, min=1), 1)
-        feats = featurize_t(
-            num_clients, state.total_size, key_range,
-            n_insert.to(torch.float32) / total_ops.to(torch.float32),
-        )
-        pred = tree_predict(self.packed, feats)
-        keep = (~do_decide) | (pred >= NUM_MODES) | (pred < 0)
-        new_mode = _i32(torch.where(keep, stats.mode, pred))
-        if mode_override is not None:
-            ov = torch.as_tensor(mode_override, dtype=torch.int32, device=dev)
-            new_mode = torch.where(ov >= 0, ov, new_mode)
-        new_mode = torch.clamp(new_mode, 0, NUM_MODES - 1)
-        transitions = stats.transitions + _i32(new_mode != stats.mode)
-        n_insert = torch.where(do_decide, 0, n_insert)
-        n_delete = torch.where(do_decide, 0, n_delete)
+            # the decision, on the device
+            do_decide = (stats.step % c.decision_interval) == 0
+            total_ops = torch.clamp(n_insert + n_delete, min=1)
+            key_range = torch.where(min_key <= max_key,
+                                    torch.clamp(max_key - min_key, min=1), 1)
+            feats = featurize_t(
+                num_clients, state.total_size, key_range,
+                n_insert.to(torch.float32) / total_ops.to(torch.float32),
+            )
+            pred = tree_predict(self.packed, feats)
+            keep = (~do_decide) | (pred >= NUM_MODES) | (pred < 0)
+            new_mode = _i32(torch.where(keep, stats.mode, pred))
+            if mode_override is not None:
+                ov = torch.as_tensor(mode_override, dtype=torch.int32,
+                                     device=dev)
+                new_mode = torch.where(ov >= 0, ov, new_mode)
+            new_mode = torch.clamp(new_mode, 0, NUM_MODES - 1)
+            transitions = stats.transitions + _i32(new_mode != stats.mode)
+            n_insert = torch.where(do_decide, 0, n_insert)
+            n_delete = torch.where(do_decide, 0, n_delete)
 
         # -- elimination/combining pre-pass ----------------------------------
         if c.eliminate:
-            if presorted is None:
-                presorted = L.sort_op_log(torch.where(ins_mask, keys, INF_KEY))
-            sk, stg = presorted
-            elim_k, elim_v, n_elim, keep_lane = O.elim_split(
-                state, sk, stg, vals, b_del)
-            ins_mask = ins_mask & keep_lane
-            active = b_del - n_elim
+            with tr.span("pq.eliminate", "pq"):
+                if presorted is None:
+                    presorted = L.sort_op_log(torch.where(ins_mask, keys,
+                                                          INF_KEY))
+                sk, stg = presorted
+                elim_k, elim_v, n_elim, keep_lane = O.elim_split(
+                    state, sk, stg, vals, b_del)
+                ins_mask = ins_mask & keep_lane
+                active = b_del - n_elim
         else:
             n_elim = torch.zeros((), dtype=torch.int32, device=dev)
             active = b_del
 
         # -- apply the batch under the selected mode -------------------------
-        state, _dropped = O.insert(state, keys, vals, mask=ins_mask)
-        refill = (state.tail_width > 0
-                  and host_bool(SCH.head_refill_pred(state, B)))
-        head_refills = stats.head_refills + int(refill)
-        state = SCH.ensure_head(state, B, pred=refill)
+        with tr.span("pq.insert", "pq"):
+            state, _dropped = O.insert(state, keys, vals, mask=ins_mask)
+        with tr.span("pq.refill", "pq"):
+            refill = (state.tail_width > 0
+                      and host_bool(SCH.head_refill_pred(state, B),
+                                    "smartpq.refill"))
+            head_refills = stats.head_refills + int(refill)
+            state = SCH.ensure_head(state, B, pred=refill)
         total = state.total_size
 
-        schedule = c.mode_schedules[host_int(new_mode)]
-        hot, out_k, out_v, n_out = SCH.HOT_SCHEDULE_FNS[schedule](
-            SCH.hot_tier(state), total, B, active,
-            SCH.schedule_draws(schedule, draws, state.num_shards, B,
-                               state.head_width, generator=generator,
-                               device=dev), c.npods)
-        res = DeleteResult(SCH.attach_hot(state, hot), out_k, out_v, n_out)
-        if c.eliminate:
-            res = O.merge_eliminated(elim_k, elim_v, n_elim, res)
+        with tr.span("pq.delete_min", "pq"):
+            schedule = c.mode_schedules[host_int(new_mode, "smartpq.mode")]
+            hot, out_k, out_v, n_out = SCH.HOT_SCHEDULE_FNS[schedule](
+                SCH.hot_tier(state), total, B, active,
+                SCH.schedule_draws(schedule, draws, state.num_shards, B,
+                                   state.head_width, generator=generator,
+                                   device=dev), c.npods)
+            res = DeleteResult(SCH.attach_hot(state, hot), out_k, out_v,
+                               n_out)
+            if c.eliminate:
+                res = O.merge_eliminated(elim_k, elim_v, n_elim, res)
 
         modes = torch.arange(NUM_MODES, dtype=torch.int32, device=dev)
         new_stats = SmartPQStats(

@@ -84,6 +84,13 @@ over 'model' and gathered at use.  On a mesh without a 'pod' axis the
 rules lose it (`strip_pod`, as the reference's); rules naming another axis
 the mesh lacks, or a mesh axis wider than 1 that no rule uses, raise a
 ValueError (`sharding.check_rules`).
+
+Spans (`obs`, the engine's observability bundle; the disabled `NULL` by
+default): `decode_step` is a ``model.decode_step`` span (cat ``model``)
+holding ``model.embed``, per layer ``model.attn`` (with ``model.attend``
+around the attention over the cache) and ``model.ffn``, ``model.moe`` or
+``model.ssm``, and ``model.unembed``.  The FFN, MoE and SSD spans are
+their layers' own, so the full-sequence passes record them too.
 """
 
 from __future__ import annotations
@@ -109,6 +116,7 @@ from repro_torch.models.layers.ssm import (SSMDims, SSMState,
                                            ssd_decode_step, ssd_forward)
 from repro_torch.models.params import (init_params, leaves, padded_experts,
                                        param_specs, ssm_dims)
+from repro_torch.obs import NULL, Observability
 from repro_torch.utils.hostsync import resolve_device
 
 Tree = Dict[str, Any]
@@ -142,9 +150,11 @@ class Model(torch.nn.Module):
                  kv_chunk: int = 2048, device=None, remat: bool = True,
                  kv_int8: bool = False, mesh=None,
                  rules: Optional[ShardingRules] = None,
-                 model_axis_size: Optional[int] = None):
+                 model_axis_size: Optional[int] = None,
+                 obs: Optional[Observability] = None):
         super().__init__()
         self.cfg = cfg
+        self.obs = obs if obs is not None else NULL
         self.compute_dtype = compute_dtype
         self.kv_chunk = kv_chunk
         self.remat = remat
@@ -502,7 +512,14 @@ class Model(torch.nn.Module):
         the new K/V rows go into `cache_k`/`cache_v` in place.  `scales`:
         the int8 caches' (k_scale, v_scale) (B, S_max, Hkv), written in
         place beside them."""
+        with self.obs.tracer.span("model.attn", "model"):
+            return self._attn_decode_layer(x, p, cache_k, cache_v, idx,
+                                           scales)
+
+    def _attn_decode_layer(self, x, p, cache_k, cache_v, idx: _DecodeIndex,
+                           scales):
         B = x.shape[0]
+        tr = self.obs.tracer
         h = self._norm(x, p["norm"], p.get("norm_b"))
         if self.mesh is not None:
             return self._attn_decode_sharded(x, h, p, cache_k, cache_v, idx,
@@ -520,17 +537,19 @@ class Model(torch.nn.Module):
             cache_v.index_put_(at, v_q[:, 0])
             ks.index_put_(at, k_s[:, 0])
             vs.index_put_(at, v_s[:, 0])
-            out = attend_chunked(
-                q, cache_k, cache_v, self.attn_dims, idx.qpos, idx.pos,
-                kv_valid=idx.valid, kv_chunk=self.kv_chunk, k_scale=ks,
-                v_scale=vs)
+            with tr.span("model.attend", "model"):
+                out = attend_chunked(
+                    q, cache_k, cache_v, self.attn_dims, idx.qpos, idx.pos,
+                    kv_valid=idx.valid, kv_chunk=self.kv_chunk, k_scale=ks,
+                    v_scale=vs)
         else:
             cache_k.index_put_(at, k_new[:, 0].to(cache_k.dtype))
             cache_v.index_put_(at, v_new[:, 0].to(cache_v.dtype))
-            out = attend_chunked(
-                q, cache_k.to(q.dtype), cache_v.to(q.dtype), self.attn_dims,
-                idx.qpos, idx.pos, kv_valid=idx.valid,
-                kv_chunk=self.kv_chunk)
+            k, v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+            with tr.span("model.attend", "model"):
+                out = attend_chunked(
+                    q, k, v, self.attn_dims, idx.qpos, idx.pos,
+                    kv_valid=idx.valid, kv_chunk=self.kv_chunk)
         y = out.reshape(B, 1, -1) @ p["wo"]
         return x + y
 
@@ -628,13 +647,16 @@ class Model(torch.nn.Module):
             put(cache_v, v_q[:, 0])
             put(ks, k_s[:, 0])
             put(vs, v_s[:, 0])
-            out = self._sp_attend(q, cache_k, cache_v, dims, idx.qpos,
-                                  idx.pos, idx.valid, ks, vs)
+            with self.obs.tracer.span("model.attend", "model"):
+                out = self._sp_attend(q, cache_k, cache_v, dims, idx.qpos,
+                                      idx.pos, idx.valid, ks, vs)
         else:
             put(cache_k, k_new[:, 0])
             put(cache_v, v_new[:, 0])
-            out = self._sp_attend(q, cache_k.to(q.dtype), cache_v.to(q.dtype),
-                                  dims, idx.qpos, idx.pos, idx.valid)
+            k, v = cache_k.to(q.dtype), cache_v.to(q.dtype)
+            with self.obs.tracer.span("model.attend", "model"):
+                out = self._sp_attend(q, k, v, dims, idx.qpos, idx.pos,
+                                      idx.valid)
         return x + self._out_proj(p, self._own_heads(out))
 
     def _cross_attn(self, x, p, ctx_k, ctx_v, gate=None,
@@ -722,6 +744,10 @@ class Model(torch.nn.Module):
     def _ffn(self, x, p):
         """The MLP; on a mesh column-parallel in and row-parallel out,
         summed over 'model' (the output bias added once, after)."""
+        with self.obs.tracer.span("model.ffn", "model"):
+            return self._ffn_layer(x, p)
+
+    def _ffn_layer(self, x, p):
         h = self._norm(x, p["norm"], p.get("norm_b"))
         tp = self._tp is not None
         col, row = (1, 0) if tp else (None, None)
@@ -738,6 +764,10 @@ class Model(torch.nn.Module):
         return x + self._leave(y)
 
     def _moe_ffn(self, x, p):
+        with self.obs.tracer.span("model.moe", "model"):
+            return self._moe_layer(x, p)
+
+    def _moe_layer(self, x, p):
         h = self._norm(x, p["norm"])
         if self.mesh is not None and self._tp:
             y, aux = moe_block_ep(
@@ -1111,6 +1141,10 @@ class Model(torch.nn.Module):
         over 'model') is gathered, each rank steps its heads, and the new
         conv window is computed for every channel and cut to the rank's
         block."""
+        with self.obs.tracer.span("model.ssm", "model"):
+            return self._ssm_decode_layer(x, norm, p, h, conv)
+
+    def _ssm_decode_layer(self, x, norm, p, h, conv):
         xin = self._norm(x, norm)
         if self.mesh is None or self._tp is None:
             y, st = ssd_decode_step(xin, SSMState(h=h, conv=conv), p,
@@ -1145,11 +1179,22 @@ class Model(torch.nn.Module):
         fill.  Writes the step's K/V and SSD states into `caches` in place
         and returns (logits (B, V_pad), caches).  An int8 model
         (`kv_int8`) of the dense or moe family decodes int8 caches (with
-        ``k_scale``/``v_scale``) as the reference does."""
+        ``k_scale``/``v_scale``) as the reference does.  Traced as a
+        ``model.decode_step`` span (module docstring)."""
+        tr = self.obs.tracer
+        with tr.span("model.decode_step", "model"):
+            x = self._decode_layers(params, caches, tokens, lengths, tr)
+            with tr.span("model.unembed", "model"):
+                return self._unembed(params, x)[:, 0, :], caches
+
+    def _decode_layers(self, params, caches: Tree, tokens, lengths, tr):
+        """`decode_step` up to the unembedding: the last layer's output
+        (B, 1, D)."""
         self._records(params)
         self._cache_layout_check()
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        with tr.span("model.embed", "model"):
+            x = self._embed(params, tokens)
         if cfg.family == "ssm":
             for i in range(cfg.n_layers):
                 # the reference normalizes with the stored (uncast) scale
@@ -1157,7 +1202,7 @@ class Model(torch.nn.Module):
                                      self._layer(params["ssm"], i),
                                      caches["ssm_h"][i],
                                      caches["ssm_conv"][i])
-            return self._unembed(params, x)[:, 0, :], caches
+            return x
         B = tokens.shape[0]
         S_max = caches["k"].shape[-3]  # (..., B, S_max, Hkv, hd)
         # on a mesh, this rank's block of positions
@@ -1169,11 +1214,9 @@ class Model(torch.nn.Module):
             at=lengths.long(), qpos=lengths[:, None], pos=pos,
             valid=pos < (lengths[:, None] + 1))
         if cfg.family == "hybrid":
-            x = self._hybrid_decode(params, caches, x, idx)
-            return self._unembed(params, x)[:, 0, :], caches
+            return self._hybrid_decode(params, caches, x, idx)
         if cfg.family == "vlm":
-            x = self._vlm_decode(params, caches, x, idx)
-            return self._unembed(params, x)[:, 0, :], caches
+            return self._vlm_decode(params, caches, x, idx)
         if cfg.family == "encdec":
             for i in range(cfg.n_layers):
                 x = self._attn_decode(x, self._layer(params["dec_attn"], i),
@@ -1183,7 +1226,7 @@ class Model(torch.nn.Module):
                                      caches["xv"][i].to(x.dtype),
                                      layout="seq")
                 x = self._ffn(x, self._layer(params["dec_mlp"], i))
-            return self._unembed(params, x)[:, 0, :], caches
+            return x
         int8_kv = self.kv_int8 and "k_scale" in caches
         for i in range(cfg.n_layers):
             x = self._attn_decode(
@@ -1195,8 +1238,7 @@ class Model(torch.nn.Module):
                 x, _ = self._moe_ffn(x, self._layer(params["moe"], i))
             else:
                 x = self._ffn(x, self._layer(params["mlp"], i))
-        logits = self._unembed(params, x)[:, 0, :]
-        return logits, caches
+        return x
 
     def _hybrid_decode(self, params, caches, x, idx: _DecodeIndex):
         cfg = self.cfg

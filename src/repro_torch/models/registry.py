@@ -27,12 +27,13 @@ MODEL_FAMILIES = ("dense", "moe", "hybrid", "ssm", "encdec", "vlm")
 def build_model(cfg: ModelConfig, mesh=None, compute_dtype=None,
                 kv_chunk: int = 2048, remat: bool = True,
                 model_axis_size: Optional[int] = None, rules=None,
-                kv_int8: bool = False, device=None) -> Model:
-    """The `Model` of a config of any family."""
+                kv_int8: bool = False, device=None, obs=None) -> Model:
+    """The `Model` of a config of any family; `obs` is the observability
+    bundle whose tracer records its decode steps."""
     if model_axis_size is None:
         model_axis_size = mesh.shape.get("model", 1) if mesh is not None \
             else 1
     return Model(cfg, compute_dtype=compute_dtype or torch.bfloat16,
                  kv_chunk=kv_chunk, device=device, remat=remat,
                  kv_int8=kv_int8, mesh=mesh, rules=rules,
-                 model_axis_size=max(model_axis_size, 1))
+                 model_axis_size=max(model_axis_size, 1), obs=obs)

@@ -280,8 +280,8 @@ class DurableStore:
         """Crash-consistent snapshot: array pytree in CRC'd npz shards,
         host state in the manifest `extra` — atomic via tmp+rename, so a
         crash mid-snapshot leaves the previous snapshot intact."""
-        with self.obs.tracer.span("snapshot", cat="durability",
-                                  step=int(step)):
+        with self.obs.tracer.span("snapshot", "durability",
+                                  {"step": int(step)}):
             path = persist.save_tree(
                 self.snap_root, int(step), arrays,
                 extra=host_state, fsync=self.cfg.fsync,

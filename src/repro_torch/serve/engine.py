@@ -100,8 +100,9 @@ class EngineConfig:
     snapshot_interval: int = 4
     keep_snapshots: int = 2
     # Observability: the engine always carries a metrics registry;
-    # `tracing` arms the window-timeline tracer and `profile_dir` wraps
-    # run() in a torch.profiler session writing a Chrome trace there.
+    # `tracing` arms the tracer (spans of every layer, obs/tracing.py) and
+    # `profile_dir` wraps run() in a torch.profiler session writing a
+    # Chrome trace there, the tracer's spans merged in when both are set.
     tracing: bool = False
     profile_dir: Optional[str] = None
 
@@ -133,6 +134,9 @@ class ServeEngine:
         self.params = params
         B, S = engine_cfg.batch_size, engine_cfg.max_seq
         self._rows = None
+        # One observability bundle for every layer below: the model, the
+        # scheduler and its queue, overload and durability.
+        self.obs = Observability(metrics=True, tracing=engine_cfg.tracing)
         if cfg is not None:
             # imported at call time, as the reference's engine does, so a
             # caller can swap them (the f32 engine comparisons do)
@@ -140,7 +144,8 @@ class ServeEngine:
             from repro_torch.models.registry import build_model
 
             self.model = build_model(cfg, mesh, kv_chunk=engine_cfg.kv_chunk,
-                                     device=self.device, rules=rules)
+                                     device=self.device, rules=rules,
+                                     obs=self.obs)
             if mesh is None:
                 self.caches = init_caches(cfg, B, S, device=self.device)
                 self._decode = self.model.decode_step
@@ -150,8 +155,6 @@ class ServeEngine:
             self.model = None
             self.caches = ()
             self._decode = _synthetic_decode
-        # One observability bundle for every layer below.
-        self.obs = Observability(metrics=True, tracing=engine_cfg.tracing)
         overload = None
         if engine_cfg.slo_targets is not None:
             from repro_torch.serve.overload import (OverloadConfig,
@@ -323,23 +326,38 @@ class ServeEngine:
              dispatched: Optional[List[Request]] = None) -> List[int]:
         """One engine tick.  Returns uids completed this step.  `dispatched`
         is pre-computed when the run loop batches scheduling through
-        `tick_window`; otherwise the scheduler steps inline."""
-        if dispatched is None:
-            n_free = len(self._free_slots())
-            dispatched = self.scheduler.tick(arrivals, n_dispatch=n_free)
-        self._admit(dispatched)
+        `tick_window`; otherwise the scheduler steps inline.  Traced as an
+        ``engine.step`` span holding ``engine.admit`` (the scheduler's tick
+        too, when it steps inline), the model's ``model.decode_step``,
+        ``engine.read`` (the step's one host read) and ``engine.finish``
+        (the per-slot bookkeeping after it)."""
+        tr = self.obs.tracer
+        with tr.span("engine.step", "engine"):
+            with tr.span("engine.admit", "engine"):
+                if dispatched is None:
+                    n_free = len(self._free_slots())
+                    dispatched = self.scheduler.tick(arrivals,
+                                                     n_dispatch=n_free)
+                self._admit(dispatched)
 
-        logits, self.caches = self._decode(
-            self.params, self.caches, self.tokens, self.lengths
-        )
-        next_tok = self._greedy(logits)
-        active = np.array([r is not None for r in self.active], np.int32)
-        self.lengths = self.lengths + torch.as_tensor(active,
-                                                      device=self.device)
-        self.tokens = next_tok[:, None]
-        # The step's one read: the decoded tokens and the lengths
-        tok_h, len_h = host_array(torch.stack([next_tok, self.lengths]))
+            logits, self.caches = self._decode(
+                self.params, self.caches, self.tokens, self.lengths
+            )
+            next_tok = self._greedy(logits)
+            active = np.array([r is not None for r in self.active], np.int32)
+            self.lengths = self.lengths + torch.as_tensor(active,
+                                                          device=self.device)
+            self.tokens = next_tok[:, None]
+            # The step's one read: the decoded tokens and the lengths
+            with tr.span("engine.read", "engine"):
+                tok_h, len_h = host_array(
+                    torch.stack([next_tok, self.lengths]), "engine.step")
+            with tr.span("engine.finish", "engine"):
+                return self._finish(tok_h, len_h)
 
+    def _finish(self, tok_h: np.ndarray, len_h: np.ndarray) -> List[int]:
+        """Append each active slot's token, release the slots whose
+        request ended, and advance the step clock.  Returns their uids."""
         done = []
         for i, req in enumerate(self.active):
             if req is None:
@@ -387,13 +405,10 @@ class ServeEngine:
     ) -> Tuple[int, int]:
         """Execute one scheduling window (K ticks, or a single `tick()`
         step when sched_window == 1) starting at engine step `step0`.
-        Returns (completions, engine steps advanced)."""
-        if self.ecfg.profile_dir is not None:
-            from repro_torch.obs.profiling import annotate
-
-            with annotate(f"serve_window@{step0}"):
-                return self._advance_impl(arrivals_by_tick, step0, max_steps)
-        return self._advance_impl(arrivals_by_tick, step0, max_steps)
+        Returns (completions, engine steps advanced).  Traced as an
+        ``engine.window`` span."""
+        with self.obs.tracer.span("engine.window", "engine"):
+            return self._advance_impl(arrivals_by_tick, step0, max_steps)
 
     def _advance_impl(
         self,
@@ -434,7 +449,7 @@ class ServeEngine:
         durable = self.durability is not None
         if durable and not self._recovered:
             self.recover()
-        with trace_session(self.ecfg.profile_dir):
+        with trace_session(self.ecfg.profile_dir, self.obs.tracer):
             completed, step, start = self._run_loop(workload, max_steps,
                                                     durable)
         sst = self.scheduler.stats
@@ -647,7 +662,8 @@ class ServeEngine:
                 m.set_gauge(f"sched_{f.name}", v)
         carry = self.scheduler.carry
         leaves = list(carry.stats) + [carry.state.total_size]
-        flat = host_array(torch.cat([t.reshape(-1) for t in leaves]))
+        flat = host_array(torch.cat([t.reshape(-1) for t in leaves]),
+                          "engine.registry")
         at = 0
         for name, leaf in zip(SmartPQStats._fields, carry.stats):
             vals = flat[at:at + leaf.numel()]

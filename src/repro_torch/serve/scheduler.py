@@ -159,10 +159,14 @@ class SmartPQScheduler:
         self.ring_capacity = ring_capacity
         # Start in the exact (Nuddle) mode: a near-empty queue must respect
         # SLO order strictly.
+        # Observability: the engine passes its own bundle; standalone
+        # schedulers get the disabled NULL bundle.  The queue traces its
+        # steps into the same tracer.
+        self.obs = obs if obs is not None else NULL
         self.pq = SmartPQ(pq_config or SmartPQConfig(
             num_shards=16, capacity=8192, npods=2, decision_interval=4,
             initial_mode=MODE_AWARE,
-        ), tree=tree, device=self.device)
+        ), tree=tree, device=self.device, obs=self.obs)
         self.carry = self.pq.init()
         self._clients = torch.tensor(NUM_CLIENTS, dtype=torch.int32,
                                      device=self.device)
@@ -174,9 +178,6 @@ class SmartPQScheduler:
         self._arrival_backlog: List[Request] = []  # submitted, not inserted
         self._step = 0
         self.stats = SchedulerStats()
-        # Observability: the engine passes its own bundle; standalone
-        # schedulers get the disabled NULL bundle.
-        self.obs = obs if obs is not None else NULL
         # Host mirror of the device mode: the tracer's transition edges.
         self._last_mode = int(self.pq.config.initial_mode)
         if isinstance(overload, OverloadConfig):
@@ -413,7 +414,8 @@ class SmartPQScheduler:
                 mode_schedules=(Schedule.STRICT_FLAT,) * NUM_MODES,
                 eliminate=False,
             )
-            self._fb = SmartPQ(cfg, tree=self.pq.tree, device=self.device)
+            self._fb = SmartPQ(cfg, tree=self.pq.tree, device=self.device,
+                               obs=self.obs)
         return self._fb
 
     def _run_guarded(self, run):
@@ -479,35 +481,37 @@ class SmartPQScheduler:
         draws = self._next_draws()
         pq = self._fallback_pq() if fallback else self.pq
         tr = self.obs.tracer
-        t0 = tr.now_us() if tr.enabled else 0.0
-        ops, keys, vals = torch.as_tensor(lanes, device=self.device)
-        self.carry, res, feats = pq.step(
-            self.carry, ops, keys, vals, draws=draws,
-            num_clients=self._clients,
-            mode_override=None if ov < 0 else ov,
-            return_features=True, generator=self._gen,
-        )
-        self._step += 1
         B = self.batch
-        out = host_array(torch.cat([
-            res.keys, res.vals, res.n_out.view(1).to(torch.int32),
-            self.carry.stats.mode.view(1)]))
-        dispatched = self._collect(out[:B], out[B:2 * B], int(out[2 * B]))
+        with tr.span("tick", "sched") as span:
+            ops, keys, vals = torch.as_tensor(lanes, device=self.device)
+            self.carry, res, feats = pq.step(
+                self.carry, ops, keys, vals, draws=draws,
+                num_clients=self._clients,
+                mode_override=None if ov < 0 else ov,
+                return_features=True, generator=self._gen,
+            )
+            self._step += 1
+            # the tick's one read: its outputs, mode and features
+            out = host_array(torch.cat([
+                res.keys, res.vals, res.n_out.view(1).to(torch.int32),
+                self.carry.stats.mode.view(1), feats.view(torch.int32)]),
+                "sched.tick")
+            dispatched = self._collect(out[:B], out[B:2 * B],
+                                       int(out[2 * B]))
         self.stats.inserted += na
         self.stats.dispatched += len(dispatched)
         mode = int(out[2 * B + 1])
         self.stats.mode_trace.append(mode)
         self.obs.metrics.inc("sched_ticks_total")
-        if tr.enabled:
-            tr.span_at("tick", t0, tr.now_us() - t0, cat="sched",
-                       step=self._step, mode=mode, arrivals=na,
-                       dispatched=len(dispatched), fallback=fallback)
+        if span is not None:
+            span["args"] = dict(step=self._step, mode=mode, arrivals=na,
+                                dispatched=len(dispatched), fallback=fallback)
             if mode != self._last_mode:
                 tr.instant(
-                    "mode_transition", cat="mode", ts=t0,
+                    "mode_transition", cat="mode", ts=span["ts"],
                     from_mode=self._last_mode, to_mode=mode,
                     step=self._step,
-                    features=host_array(feats).astype(np.float32).tolist(),
+                    features=out[2 * B + 2:].view(np.float32).tolist(),
                 )
         self._last_mode = mode
         self._observe([(r, self._step) for r in dispatched], self._step)
@@ -542,16 +546,16 @@ class SmartPQScheduler:
         vals = torch.where(is_arr, uid, 0).to(torch.int32)
         return ops, keys, vals
 
-    def _window_scan(self, pq, carry, ring, avail_by_tick, budgets, step0,
-                     draws, mode_ov):
-        """K scheduler ticks over `SmartPQ.step`.  `ring` is the admission
-        ring, (4, R) int32 rows (slo, prompt_len, arrival_step, uid), on the
-        device.  Each tick consumes the FIFO prefix of ring entries that
-        have arrived by it, up to the lane width; entries already arrived
-        but beyond it are counted into `ring_deferred`, as the reference's
-        scan does.  Returns (carry, entries consumed, the stacked per-tick
-        outputs (keys, vals, n_out, mode, features, eliminated) on the
-        device)."""
+    def _window_plan(self, ring, avail_by_tick, budgets, step0,
+                     eliminate: bool):
+        """The window's lanes from the admission ring.  `ring` is (4, R)
+        int32 rows (slo, prompt_len, arrival_step, uid) on the device.
+        Each tick consumes the FIFO prefix of ring entries that have
+        arrived by it, up to the lane width; entries already arrived but
+        beyond it are counted as deferred, as the reference's scan does.
+        Returns ((ops, keys, vals, presorted), entries consumed, entries
+        deferred); `presorted` is the operation log's sort, or None without
+        elimination."""
         B = self.batch
         K = len(budgets)
         heads = np.zeros(K, np.int64)
@@ -566,25 +570,33 @@ class SmartPQScheduler:
             head += int(n_arr[t])
         ops, keys, vals = self._window_lanes(ring, heads, n_arr, n_del, step0)
         presorted = None
-        if pq.config.eliminate:
+        if eliminate:
             presorted = L.sort_op_log(torch.where(ops == OP_INSERT, keys,
                                                   INF_KEY))
-        outs = []
-        for t in range(K):
-            carry, res, feats = pq.step(
-                carry, ops[t], keys[t], vals[t], draws=draws[t],
-                num_clients=self._clients,
-                presorted=None if presorted is None else (
-                    presorted[0][t], presorted[1][t]),
-                mode_override=None if mode_ov < 0 else mode_ov,
-                return_features=True, generator=self._gen,
-            )
+        return (ops, keys, vals, presorted), head, deferred
+
+    def _window_scan(self, pq, carry, lanes, draws, mode_ov):
+        """K scheduler ticks over `SmartPQ.step`, each inside a ``tick``
+        span.  Returns (carry, the stacked per-tick outputs (keys, vals,
+        n_out, mode, features, eliminated) on the device, the tick spans'
+        events, None where the tracer is off)."""
+        ops, keys, vals, presorted = lanes
+        tr = self.obs.tracer
+        outs, spans = [], []
+        for t in range(ops.shape[0]):
+            with tr.span("tick", "sched") as span:
+                carry, res, feats = pq.step(
+                    carry, ops[t], keys[t], vals[t], draws=draws[t],
+                    num_clients=self._clients,
+                    presorted=None if presorted is None else (
+                        presorted[0][t], presorted[1][t]),
+                    mode_override=None if mode_ov < 0 else mode_ov,
+                    return_features=True, generator=self._gen,
+                )
+            spans.append(span)
             outs.append((res.keys, res.vals, res.n_out.to(torch.int32),
                          carry.stats.mode, feats, carry.stats.eliminated))
-        if deferred:
-            carry = carry._replace(stats=carry.stats._replace(
-                ring_deferred=carry.stats.ring_deferred + deferred))
-        return carry, head, [torch.stack(x) for x in zip(*outs)]
+        return carry, [torch.stack(x) for x in zip(*outs)], spans
 
     def tick_window(
         self,
@@ -619,104 +631,115 @@ class SmartPQScheduler:
         budgets: Sequence[int],
         fallback: bool,
     ) -> List[List[Request]]:
-        K = len(arrivals)
-        arrivals = [self._admit(reqs) for reqs in arrivals]
-        for reqs in arrivals:
-            self.submit(reqs)
-
-        # Load the ring: backlog first (FIFO), available at tick 0; this
-        # window's arrivals become available at their own tick.  Overflow
-        # beyond the fixed capacity returns to the backlog untouched.
-        R = self.ring_capacity
-        pending = [(r, 0) for r in self._arrival_backlog] + [
-            (r, t) for t, reqs in enumerate(arrivals) for r in reqs
-        ]
-        loaded = pending[:R]
-        ring = np.zeros((4, R), np.int32)
-        avail_tick = np.zeros(len(loaded), np.int32)
-        for i, (r, t) in enumerate(loaded):
-            ring[:, i] = (r.slo_class, r.prompt_len, r.arrival_step, r.uid)
-            avail_tick[i] = t
-        avail_by_tick = np.searchsorted(avail_tick, np.arange(K),
-                                        side="right")
-
-        ov = self._mode_override()
-        step0 = self._step
-        self._step += K  # priority keys age per tick, as in tick()
-        draws = [self._next_draws() for _ in range(K)]
-        pq = self._fallback_pq() if fallback else self.pq
+        """One window, traced as a ``sched.window`` span holding
+        ``sched.ring`` (admission, the ring's load and the lanes built from
+        it), the K ``tick`` spans (one `SmartPQ.step` each), ``sched.read``
+        (the window's one host read) and ``sched.collect``."""
         tr = self.obs.tracer
-        elim0 = host_int(self.carry.stats.eliminated) if tr.enabled else 0
-        t_win = tr.now_us() if tr.enabled else 0.0
-        self.carry, consumed, (dk, dv, dn, dm, df, de) = self._window_scan(
-            pq, self.carry, torch.as_tensor(ring, device=self.device),
-            avail_by_tick, budgets, step0, draws, ov)
+        with tr.span("sched.window", "sched") as window:
+            return self._window_body(arrivals, budgets, fallback, tr, window)
+
+    def _window_body(self, arrivals, budgets, fallback, tr, window):
+        K = len(arrivals)
+        with tr.span("sched.ring", "sched.phase"):
+            arrivals = [self._admit(reqs) for reqs in arrivals]
+            for reqs in arrivals:
+                self.submit(reqs)
+
+            # Load the ring: backlog first (FIFO), available at tick 0; this
+            # window's arrivals become available at their own tick.
+            # Overflow beyond the fixed capacity returns to the backlog
+            # untouched.
+            R = self.ring_capacity
+            pending = [(r, 0) for r in self._arrival_backlog] + [
+                (r, t) for t, reqs in enumerate(arrivals) for r in reqs
+            ]
+            loaded = pending[:R]
+            ring = np.zeros((4, R), np.int32)
+            avail_tick = np.zeros(len(loaded), np.int32)
+            for i, (r, t) in enumerate(loaded):
+                ring[:, i] = (r.slo_class, r.prompt_len, r.arrival_step,
+                              r.uid)
+                avail_tick[i] = t
+            avail_by_tick = np.searchsorted(avail_tick, np.arange(K),
+                                            side="right")
+
+            ov = self._mode_override()
+            step0 = self._step
+            self._step += K  # priority keys age per tick, as in tick()
+            draws = [self._next_draws() for _ in range(K)]
+            pq = self._fallback_pq() if fallback else self.pq
+            lanes, consumed, deferred = self._window_plan(
+                torch.as_tensor(ring, device=self.device), avail_by_tick,
+                budgets, step0, pq.config.eliminate)
+        elim0 = self.carry.stats.eliminated
+        self.carry, (dk, dv, dn, dm, df, de), spans = self._window_scan(
+            pq, self.carry, lanes, draws, ov)
+        if deferred:
+            st = self.carry.stats
+            self.carry = self.carry._replace(stats=st._replace(
+                ring_deferred=st.ring_deferred + deferred))
         self._arrival_backlog = [r for r, _ in pending[consumed:]]
         self._enforce_backlog_cap()
 
-        # The window's one read of its outputs
+        # The window's one read of its outputs: the dispatches, the modes,
+        # the running elimination count (from before the window) and the
+        # classifier's features
         B = self.batch
-        flat = host_array(torch.cat([dk.flatten(), dv.flatten(), dn, dm]))
+        with tr.span("sched.read", "sched.phase"):
+            flat = host_array(torch.cat([
+                dk.flatten(), dv.flatten(), dn, dm, elim0.view(1), de,
+                df.flatten().view(torch.int32)]), "sched.window")
         out_k = flat[:K * B].reshape(K, B)
         out_v = flat[K * B:2 * K * B].reshape(K, B)
-        n_out = flat[2 * K * B:2 * K * B + K]
-        modes = flat[2 * K * B + K:]
+        at = 2 * K * B
+        n_out, modes, elim = (flat[at:at + K], flat[at + K:at + 2 * K],
+                              flat[at + 2 * K:at + 3 * K + 1])
+        feats = flat[at + 3 * K + 1:].view(np.float32).reshape(K, -1)
         dispatched_per_tick = []
         all_dispatched: List[Tuple[Request, int]] = []
-        for t in range(K):
-            d = self._collect(out_k[t], out_v[t], int(n_out[t]))
-            dispatched_per_tick.append(d)
-            all_dispatched.extend((r, step0 + t + 1) for r in d)
-            self.stats.dispatched += len(d)
-            self.stats.mode_trace.append(int(modes[t]))
-        self.stats.inserted += consumed
-        self.obs.metrics.inc("sched_windows_total")
-        self.obs.metrics.inc("sched_ticks_total", n=K)
-        if tr.enabled:
-            self._trace_window(
-                tr, t_win, step0, K, consumed, fallback, modes,
-                host_array(df), host_array(de), elim0,
-                [len(d) for d in dispatched_per_tick],
-            )
+        with tr.span("sched.collect", "sched.phase"):
+            for t in range(K):
+                d = self._collect(out_k[t], out_v[t], int(n_out[t]))
+                dispatched_per_tick.append(d)
+                all_dispatched.extend((r, step0 + t + 1) for r in d)
+                self.stats.dispatched += len(d)
+                self.stats.mode_trace.append(int(modes[t]))
+            self.stats.inserted += consumed
+            self.obs.metrics.inc("sched_windows_total")
+            self.obs.metrics.inc("sched_ticks_total", n=K)
+        if window is not None:
+            self._trace_window(tr, window, spans, step0, consumed, fallback,
+                               modes, feats, np.diff(elim),
+                               [len(d) for d in dispatched_per_tick])
         self._last_mode = int(modes[-1])
         self._observe(all_dispatched, self._step)
         return dispatched_per_tick
 
-    def _trace_window(
-        self, tr, t_win, step0, K, consumed, fallback, modes,
-        feats, elim_cum, elim0, n_disp,
-    ) -> None:
-        """Emit the window span, K tick spans that subdivide it (their args
-        are each tick's real mode, dispatches and eliminations) and the
-        mode-transition instants."""
-        dur = tr.now_us() - t_win
-        tr.span_at(
-            "window", t_win, dur, cat="sched", step0=step0, ticks=K,
-            admitted=consumed, dispatched=int(sum(n_disp)),
-            fallback=fallback,
-        )
-        slot = dur / K
+    def _trace_window(self, tr, window, spans, step0, consumed, fallback,
+                      modes, feats, eliminated, n_disp) -> None:
+        """Give the window's span and its K tick spans their arguments
+        (each tick's mode, dispatches and eliminations, from the window's
+        read) and emit the mode-transition instants at their ticks."""
+        window["args"] = dict(step0=step0, ticks=len(spans),
+                              admitted=consumed, dispatched=int(sum(n_disp)),
+                              fallback=fallback)
         last = self._last_mode
-        for t in range(K):
+        for t, span in enumerate(spans):
             mode = int(modes[t])
-            ts = t_win + t * slot
-            tr.span_at(
-                "tick", ts, slot, cat="sched", step=step0 + t + 1,
-                mode=mode, dispatched=n_disp[t],
-                eliminated=int(elim_cum[t]) - (
-                    int(elim_cum[t - 1]) if t else elim0
-                ),
-            )
+            span["args"] = dict(step=step0 + t + 1, mode=mode,
+                                dispatched=n_disp[t],
+                                eliminated=int(eliminated[t]))
             if mode != last:
                 tr.instant(
-                    "mode_transition", cat="mode", ts=ts,
+                    "mode_transition", cat="mode", ts=span["ts"],
                     from_mode=last, to_mode=mode, step=step0 + t + 1,
-                    features=np.asarray(feats[t], np.float32).tolist(),
+                    features=feats[t].tolist(),
                 )
             last = mode
 
     @property
     def pending(self) -> int:
         """Requests awaiting dispatch: queued on device + arrival backlog."""
-        return (host_int(self.carry.state.total_size)
+        return (host_int(self.carry.state.total_size, "sched.pending")
                 + len(self._arrival_backlog))

@@ -163,7 +163,7 @@ def make_sssp_engine(
                 pops, wasted = pops + res.n_out, wasted + w
                 improved = improved + imp
             steps += chunk
-            if host_bool(st.total_size == 0):
+            if host_bool(st.total_size == 0, "sssp.drained"):
                 break
         return SSSPResult(
             dist=dist.cpu().numpy(), pops=int(pops), wasted=int(wasted),
@@ -280,7 +280,7 @@ def make_smartpq_sssp_engine(
                     log_vals.append(vals)
             steps += chunk
             if host_bool((pqc.state.total_size == 0)
-                         & ~torch.any(pend_k < INF_KEY)):
+                         & ~torch.any(pend_k < INF_KEY), "sssp.drained"):
                 break
         # the pipelined lag means a drained queue with pending candidates
         # is not converged: their out-edges were never relaxed

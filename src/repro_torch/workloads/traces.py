@@ -70,7 +70,7 @@ def prefill(state: PQState, keys, vals) -> PQState:
         state, lost = O.insert(state, keys[lo:lo + width],
                                vals[lo:lo + width])
         dropped = dropped + lost.sum(dtype=torch.int32)
-    n_dropped = host_int(dropped)
+    n_dropped = host_int(dropped, "traces.prefill_dropped")
     if n_dropped:
         raise ValueError(
             f"prefill dropped {n_dropped} of {keys.shape[0]} keys: the queue "
