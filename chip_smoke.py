@@ -9,7 +9,9 @@ non-zero before its last line):
   1. device   the card's name and power limit, torch and CUDA versions, and
               the time to build the CUDA kernels from `src/repro_torch/kernels/csrc`;
   2. kernels  each kernel against its plain PyTorch version on the card,
-              bit-exact, at the kernel's validation shapes and at the shapes
+              bit-exact (`decode_attend`, which replaces no Pallas kernel,
+              within `kernels.ops.DECODE_TOL` of `attend_chunked`'s plain
+              arm), at the kernel's validation shapes and at the shapes
               the main path gives it, with times of the kernel, the plain
               version and one library call computing the same function on
               inputs packed into int64 words beforehand (and, beside it, the
@@ -216,11 +218,12 @@ path I a distributed step or a delegation round does, and its launches are
 those of this process's distributed calls and delegations plus those of
 I2's eight rank processes, each counted from 0 just before its steps; on
 path J an engine tick does, and its launches are those of J3's engine
-runs (the model itself launches no hand kernel); on paths K and L
-likewise, K1's and K2's (L1's and L2's) engine runs each counted from 0
-just before it; on path N an engine tick does, and its launches are those
-of N1's four rank processes' sharded engine runs, each counted from 0 just
-before it (N2 and N3 launch no hand kernel); on path O an example's step
+runs (the model's self-attention decode launches `decode_attend` once a
+layer a step); on paths K and L likewise, K1's and K2's (L1's and L2's)
+engine runs each counted from 0 just before it; on path N an engine tick
+does, and its launches are those of N1's four rank processes' sharded
+engine runs, each counted from 0 just before it (N2 and N3 launch no hand
+kernel); on path O an example's step
 or engine tick does, and its launches are all of its card runs' (the CPU
 reruns and train_demo launch none); path P launches nothing.
 `merge_sorted` has no caller
@@ -351,9 +354,21 @@ MERGE_SORTED_SHAPES = [
     ((4, 256, 64), MERGE_DUPLICATES), ((2, 4096, 4096), "R = C"),
     ((1, 16384, 4), "C = 16384, the widest row"),
 ]
+# (B, S, Hq, Hkv, hd), bf16: the benchmark cell g8b-decode-4k's layer call
+# (granite-8b, 64 slots of 4,096 positions) with contexts drawn as its
+# backlog's (geometric, mean about 56, one row of 405), whole rows and one
+# position a row; then path J's llama3.2-3b layer call (8 slots of 512).
+DECODE_CONTEXTS = "main: g8b-decode-4k contexts"
+DECODE_SHAPES = [
+    ((64, 4096, 32, 8, 128), DECODE_CONTEXTS),
+    ((64, 4096, 32, 8, 128), "whole rows"),
+    ((64, 4096, 32, 8, 128), "one position a row"),
+    ((8, 512, 24, 8, 128), "path J's layer call, lengths drawn in [1, 512]"),
+]
 MAIN_SHAPE = {"topk_smallest": (1, 1424, 64), "elim_sort": (64, 64),
               "windowed_merge": (16, 256, 64), "twochoice_pick": (16, 57),
-              "multiq_select": (16, 57), "merge_sorted": (8, 1024, 128)}
+              "multiq_select": (16, 57), "merge_sorted": (8, 1024, 128),
+              "decode_attend": (64, 4096, 32, 8, 128)}
 REPLACES = {
     "windowed_merge": "src/repro/kernels/windowed_merge.py:52",
     "topk_smallest": "src/repro/kernels/bitonic_topk.py:128",
@@ -361,6 +376,7 @@ REPLACES = {
     "twochoice_pick": "src/repro/kernels/twochoice.py:67",
     "multiq_select": "src/repro/kernels/twochoice.py:122",
     "merge_sorted": "src/repro/kernels/sorted_merge.py:50",
+    "decode_attend": "none",  # the reference's attention is plain jnp
 }
 # Kernels with no caller on any path: their launches are phase 2's.
 NO_CALLER = ("merge_sorted",)
@@ -415,20 +431,27 @@ def check_kernels(seed: int = 0):
         inputs prepared outside it (a closure of no arguments), or None
         where there is none; `packed` (of the kernel's arguments) is the
         same call with the int64 packing of its inputs inside, an earlier
-        yardstick that also timed the packing."""
+        yardstick that also timed the packing.  Integer outputs must be
+        bit-exact, floating ones within `KO.DECODE_TOL` of their dtype."""
         got = kernel(*args)
         want = plain(*args)
         got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
         torch.cuda.synchronize()
-        err = 0
+        err, match = 0, True
         for g, w in zip(got, want):
             if g.shape != w.shape:
                 raise AssertionError(
                     f"{name} {shape}: kernel shape {tuple(g.shape)} != "
                     f"plain {tuple(w.shape)}")
-            if g.numel():
+            if not g.numel():
+                continue
+            if g.is_floating_point():
+                err = max(err, float((g.float() - w.float()).abs().max()))
+                match = match and torch.allclose(
+                    g.float(), w.float(), **KO.DECODE_TOL[g.dtype])
+            else:
                 err = max(err, int((g.long() - w.long()).abs().max()))
-        match = err == 0
+                match = match and err == 0
         k_ms = cuda_ms(lambda: kernel(*args))
         p_ms = cuda_ms(lambda: plain(*args))
         l_ms = cuda_ms(library) if library else None
@@ -577,6 +600,40 @@ def check_kernels(seed: int = 0):
             S * C * _log2(Rw + 1) + S * Rw * _log2(C + 1),
             packed=packed,
         )
+    from repro_torch.models.layers.attention import (AttnDims, _rounded_scale,
+                                                     attend_chunked)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for (B, S, Hq, Hkv, hd), label in DECODE_SHAPES:
+        if label == DECODE_CONTEXTS:
+            lens = np.minimum(1 + rng.geometric(1 / 55, B), S)
+            lens[0] = min(405, S)
+        elif label == "whole rows":
+            lens = np.full(B, S)
+        elif label == "one position a row":
+            lens = np.ones(B, np.int64)
+        else:
+            lens = rng.integers(1, S + 1, B)
+        kv_len = t(lens.astype(np.int32))
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((B, 1, Hq, hd), (B, S, Hkv, hd),
+                                          (B, S, Hkv, hd)))
+        dims = AttnDims(n_heads=Hq, n_kv_heads=Hkv, head_dim=hd)
+        pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+
+        def plain(q, k, v, kv_len, scale, dims=dims, pos=pos):
+            """`attend_chunked`'s plain arm: the mask as `kv_valid`."""
+            return attend_chunked(q, k, v, dims, (kv_len - 1)[:, None], pos,
+                                  kv_valid=pos < kv_len[:, None])
+
+        # bytes: the valid prefix's K and V, q and the output (bf16)
+        run_case(
+            "decode_attend", (B, S, Hq, Hkv, hd), label,
+            (q, k, v, kv_len, _rounded_scale(dims, q.dtype)),
+            KO.decode_attend, plain, None,
+            2 * (2 * int(lens.sum()) * Hkv * hd + 2 * B * Hq * hd) + 4 * B,
+            4.0 * int(lens.sum()) * Hq * hd,
+        )
     return records, dict(KO.LAUNCHES)
 
 
@@ -633,9 +690,10 @@ PATH_KERNELS = {
           "multiq_select"),
     "I": ("windowed_merge", "topk_smallest", "twochoice_pick",
           "multiq_select"),
-    "J": ("windowed_merge", "topk_smallest", "elim_sort"),
+    "J": ("windowed_merge", "topk_smallest", "elim_sort", "decode_attend"),
+    # K1 (MoE) must launch decode_attend too, K2 (SSM) has no attention
     "K": ("windowed_merge", "topk_smallest", "elim_sort"),
-    "L": ("windowed_merge", "topk_smallest", "elim_sort"),
+    "L": ("windowed_merge", "topk_smallest", "elim_sort", "decode_attend"),
     "M": (),  # training has no hand kernel
     "N": ("topk_smallest", "elim_sort"),  # N1's ticks merge no head
     "O": ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
@@ -826,14 +884,16 @@ def counts_reset():
     WINDOW_LAUNCHES.clear()
 
 
-def counts_read(path: str):
+def counts_read(path: str, also=()):
     """The launch counts since `counts_reset`, in all and inside the
     windows; fails when a kernel `path`'s windows must launch
-    (`PATH_KERNELS`) was never launched inside them."""
+    (`PATH_KERNELS`, and `also` for this run) was never launched inside
+    them."""
     from repro_torch.kernels import ops as KO
 
     in_windows = dict(WINDOW_LAUNCHES)
-    missing = [k for k in PATH_KERNELS[path] if in_windows.get(k, 0) == 0]
+    missing = [k for k in PATH_KERNELS[path] + tuple(also)
+               if in_windows.get(k, 0) == 0]
     if missing:
         raise AssertionError(f"path {path}: kernels {missing} never "
                              f"launched inside the path's windows")
@@ -3599,9 +3659,9 @@ def path_k2_identity(cfg, model, params, c=PATH_K, device="cuda"):
 def path_k(tree, c=PATH_K, device="cuda"):
     """Phase 14: K1-K3.  The path's launch counts are those of K1's and
     K2's unprofiled engine runs, each counted from 0 just before it (the
-    models launch no hand kernel; the scheduler's kernels run in the
-    engine's ticks).  Returns (launches, launches inside the runs,
-    ticks)."""
+    MoE model's attention decode launches `decode_attend`, the SSM model
+    no hand kernel; the scheduler's kernels run in the engine's ticks).
+    Returns (launches, launches inside the runs, ticks)."""
     import torch
 
     from repro_torch.kernels import ops as KO
@@ -3618,7 +3678,8 @@ def path_k(tree, c=PATH_K, device="cuda"):
         counts_reset()
         ticks += path_j3(tree, cfg, model, params, nbytes, c, device,
                          step=step, tag=tag)
-        for k, n in counts_read("K")[1].items():
+        also = ("decode_attend",) if cfg.moe else ()
+        for k, n in counts_read("K", also)[1].items():
             in_runs[k] = in_runs.get(k, 0) + n
         del model, params
         if torch.device(device).type == "cuda":
@@ -3812,9 +3873,9 @@ def path_l_identity(cfg, model, params, c=PATH_L, device="cuda",
 def path_l(tree, c=PATH_L, device="cuda"):
     """Phase 15: L1-L4.  The path's launch counts are those of L1's and
     L2's unprofiled engine runs, each counted from 0 just before it (the
-    models launch no hand kernel; the scheduler's kernels run in the
-    engine's ticks).  Returns (launches, launches inside the runs,
-    ticks)."""
+    models' self-attention decode launches `decode_attend`; the
+    scheduler's kernels run in the engine's ticks).  Returns (launches,
+    launches inside the runs, ticks)."""
     import torch
 
     from repro_torch.kernels import ops as KO

@@ -32,7 +32,7 @@ from typing import Dict, List, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 SOURCES = ("windowed_merge", "topk_smallest", "elim_sort", "twochoice_pick",
-           "multiq_select", "merge_sorted")
+           "multiq_select", "merge_sorted", "decode_attend")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -114,8 +114,8 @@ def build_all(csrc: Path = CSRC, out: Path | None = None,
 
 def bind(name: str, lib: ctypes.CDLL) -> None:
     """Declare the C signatures of kernel `name`'s launch and error
-    functions in `lib`."""
-    p, i = ctypes.c_void_p, ctypes.c_int
+    functions (and `decode_attend`'s scratch size) in `lib`."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     sig = {
         "windowed_merge": [p] * 9 + [i, i, i, p],
         "topk_smallest": [p] * 4 + [i, i, i, p],
@@ -123,10 +123,14 @@ def bind(name: str, lib: ctypes.CDLL) -> None:
         "twochoice_pick": [p, i] * 4 + [p, i, i, p],
         "multiq_select": [p, i] * 3 + [p, p, i, i, p],
         "merge_sorted": [p] * 6 + [i, i, i, p],
+        "decode_attend": [p] * 6 + [f] + [i] * 6 + [p],
     }[name]
     fn = getattr(lib, f"{name}_launch")
     fn.argtypes = sig
     fn.restype = i
+    if name == "decode_attend":  # the scratch a shape needs, or -1
+        lib.decode_attend_scratch.argtypes = [i] * 5
+        lib.decode_attend_scratch.restype = ctypes.c_longlong
     err = getattr(lib, f"{name}_error")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p

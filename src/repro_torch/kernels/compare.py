@@ -13,9 +13,10 @@ flags into ``build/compare/NAME/``.  The trees' kernels must share the C
 interface of this tree's wrappers (`kernels.ops`), which launch each
 tree's build in turn (`build.use`).  For every kernel and shape of
 `SHAPES` the script makes one input from ``--seed``, checks every tree's
-output against the plain version (bit-equal, or it exits 1 without
-timing; a tree whose launcher refuses the shape is left out of that
-shape's timing), then reads each tree's device time (`timing.graph_ms`, as
+output against the plain version (bit-equal; `decode_attend`'s bf16
+output within `kernels.ops.DECODE_TOL` of its plain arm, `attend_chunked` on the
+card; or it exits 1 without timing; a tree whose launcher refuses the
+shape is left out of that shape's timing), then reads each tree's device time (`timing.graph_ms`, as
 `chip_smoke.py`'s phase 2 does) ``--rounds`` times, the trees in order in
 even rounds and in reverse in odd ones (A B, B A, ...).  It prints every
 reading and each tree's median, in µs, with the card's name and power
@@ -40,6 +41,8 @@ from . import ref as KR
 from .timing import card_line, graph_ms
 
 INF_KEY = 2**31 - 1
+# `decode_attend`'s lengths drawn as contexts near the benchmark cell's
+CONTEXTS = "g8b-decode-4k contexts"
 # The label of `merge_sorted`'s case whose rows hold equal (key, val) words
 # across buffer and run: all vals 0, keys in [0, 8).
 DUPLICATES = "duplicate (key, val) words"
@@ -78,7 +81,42 @@ SHAPES = {
         ((2, 4096, 4096), "R = C"),
         ((1, 16384, 4), "C = 16384, the widest row"),
     ],
+    # (B, S, Hq, Hkv, hd): g8b-decode-4k's layer call, bf16
+    "decode_attend": [
+        ((64, 4096, 32, 8, 128), CONTEXTS),
+        ((64, 4096, 32, 8, 128), "whole rows"),
+        ((64, 4096, 32, 8, 128), "one position a row"),
+    ],
 }
+
+
+def _decode_case(shape, label, rng, dev):
+    """`decode_attend`'s arguments at one shape: random bf16 q, K, V (q
+    scaled by 3) and lengths by `label`, with its plain arm."""
+    from repro_torch.models.layers.attention import (AttnDims, _rounded_scale,
+                                                     attend_chunked)
+
+    B, S, Hq, Hkv, hd = shape
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(1 << 31)))
+    q = 3 * torch.randn((B, 1, Hq, hd), generator=gen, device=dev)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+            for _ in range(2))
+    if label == CONTEXTS:  # geometric, mean about 56, one row of 405
+        lens = np.minimum(1 + rng.geometric(1 / 55, B), S)
+        lens[0] = min(405, S)
+    else:
+        lens = np.full(B, S if label == "whole rows" else 1)
+    kv_len = torch.as_tensor(lens, dtype=torch.int32, device=dev)
+    dims = AttnDims(Hq, Hkv, hd)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+
+    def plain(q, k, v, kv_len, scale):
+        return attend_chunked(q, k, v, dims, (kv_len - 1)[:, None], pos,
+                              kv_valid=pos < kv_len[:, None])
+
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    return KO.decode_attend, (q, k, v, kv_len,
+                              _rounded_scale(dims, q.dtype)), plain
 
 
 def _sorted_rows(rng, S, W, hi=200):
@@ -133,13 +171,17 @@ def _case(name, shape, label, rng, dev):
                     (1 << 20) + np.tile(np.arange(R, dtype=np.int32), (S, 1)))
         return KO.merge_sorted_runs, tuple(t(a) for a in args), \
             KR.merge_sorted_runs_ref
+    if name == "decode_attend":
+        return _decode_case(shape, label, rng, dev)
     raise ValueError(f"compare: no inputs for kernel {name!r}")
 
 
 def _same(got, want) -> bool:
     got, want = ((x,) if torch.is_tensor(x) else x for x in (got, want))
-    return all(g.shape == w.shape and torch.equal(g.cpu(), w.cpu())
-               for g, w in zip(got, want))
+    return all(g.shape == w.shape and (
+        torch.allclose(g.float(), w.float(), **KO.DECODE_TOL[g.dtype])
+        if g.is_floating_point() else torch.equal(g.cpu(), w.cpu()))
+        for g, w in zip(got, want))
 
 
 def main(argv=None) -> int:

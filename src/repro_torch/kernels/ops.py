@@ -25,6 +25,11 @@ head tier in place: `twochoice_counts` takes 1-D tensors of any stride (its
 windows with unit column stride and any row stride (`head_keys[:, :m]`);
 the wrapper passes the strides to the kernel.
 
+`decode_attend` is the one kernel that replaces no Pallas kernel and has
+no plain version here: it takes CUDA tensors only, and its plain arm is
+`models.layers.attention.attend_chunked` itself, which calls it for a
+one-token query over a per-row-length cache on the card.
+
 Each wrapper counts its kernel launches in `LAUNCHES` (one per launch,
 nowhere else), so a run can show that its path went through the kernels.
 """
@@ -32,6 +37,7 @@ nowhere else), so a run can show that its path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -44,6 +50,14 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in build.SOURCES}
 # The widest row `windowed_merge` takes, H + R words (its `kMaxWindow`):
 # the row it stages in shared memory stays within 128 KB.
 MAX_MERGE_WINDOW = 1 << 15
+_DECODE_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+# How far `decode_attend` may lie from its plain arm, by dtype.  bf16: one
+# ulp of the plain arm's element (2^-7 of it at most) plus 2^-14 absolute;
+# both sides are f32 sums of the same terms in another order (about 1e-6
+# apart), which can round to the neighbouring bf16 number, and next to 0
+# the order's error is absolute.  f32 outputs keep the f32 sums' difference.
+DECODE_TOL = {torch.bfloat16: dict(rtol=2.0 ** -7, atol=2.0 ** -14),
+              torch.float32: dict(rtol=1e-5, atol=1e-5)}
 
 
 def reset_launches() -> None:
@@ -281,3 +295,66 @@ def segment_min_into(dist: torch.Tensor, tgt: torch.Tensor,
     buf.scatter_reduce_(0, idx, vals.to(dist.dtype), "amin",
                         include_self=True)
     return buf[:n]
+
+
+# ---------------------------------------------------------------------------
+# decode attention over the valid prefix of each cache row
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=64)
+def _decode_scratch(B: int, S: int, Hq: int, Hkv: int, hd: int) -> int:
+    """Floats of scratch `decode_attend` needs at these shapes; the kernel's
+    source alone holds the limits on them, and this raises past them."""
+    n = build.load("decode_attend").decode_attend_scratch(B, S, Hq, Hkv, hd)
+    if n < 0:
+        raise ValueError(
+            f"decode_attend: kernel does not take B {B}, S {S}, Hq {Hq}, "
+            f"Hkv {Hkv}, hd {hd} (its limits: csrc/decode_attend.cu)")
+    return n
+
+
+def decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  kv_len: torch.Tensor, scale: float) -> torch.Tensor:
+    """One-token attention of q (B, 1, Hq, hd) over the first kv_len[b]
+    positions (clamped to [0, S]) of each row of k, v (B, S, Hkv, hd):
+    (B, 1, Hq, hd) in q's dtype.  Query head h reads KV head h // G.  The
+    query is scaled by `scale` (a number of q's dtype) in that dtype, then
+    everything is f32, as `attend_chunked`'s plain arm computes it; a row
+    with kv_len 0 reads 0.  The kernel takes contiguous, 16-byte aligned
+    CUDA tensors: q, k, v of one dtype, bf16 or f32, and kv_len (B,)
+    int32, at the shapes its source allows (`_decode_scratch`)."""
+    name = "decode_attend"
+    ts = (q, k, v, kv_len)
+    dev = q.device
+    if not (q.is_cuda and k.device == dev and v.device == dev
+            and kv_len.device == dev):
+        raise ValueError(f"{name}: the kernel takes CUDA tensors on one "
+                         f"device, got {[str(t.device) for t in ts]}")
+    if q.dtype not in _DECODE_DTYPES or k.dtype != q.dtype \
+            or v.dtype != q.dtype or kv_len.dtype != torch.int32:
+        raise TypeError(f"{name}: kernel takes q, k, v of one dtype of "
+                        f"{list(_DECODE_DTYPES)} and int32 lengths, got "
+                        f"{[t.dtype for t in ts]}")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: shapes {[tuple(t.shape) for t in ts]}")
+    B, Sq, Hq, hd = q.shape
+    S, Hkv = k.shape[1], k.shape[2]
+    if (Sq != 1 or k.shape != (B, S, Hkv, hd) or v.shape != k.shape
+            or kv_len.shape != (B,)):
+        raise ValueError(
+            f"{name}: kernel takes q (B, 1, Hq, hd), k and v (B, S, Hkv, "
+            f"hd), kv_len (B,); got {[tuple(t.shape) for t in ts]}")
+    if not all(t.is_contiguous() for t in ts) \
+            or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError(f"{name}: kernel takes contiguous tensors, q, k and "
+                         f"v 16-byte aligned")
+    out = torch.empty_like(q)
+    if B:
+        part = torch.empty(_decode_scratch(B, S, Hq, Hkv, hd),
+                           dtype=torch.float32, device=dev)
+        _launch(name, build.load(name), q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), kv_len.data_ptr(), out.data_ptr(),
+                part.data_ptr(), scale, _DECODE_DTYPES[q.dtype], B, S, Hq,
+                Hkv, hd, _stream())
+    return out

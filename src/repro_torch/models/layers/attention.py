@@ -14,15 +14,23 @@ per-(token, head) scales (`k_scale`, `v_scale`) and is dequantized as the
 reference's is, ``int8.float() * scale.float()``: all of it at once in the
 dense branch (then cast to q's dtype), one chunk at a time in the chunked
 branch (kept in f32).
+
+A one-token query on the card whose mask is a per-row length
+(`attend_chunked`'s `kv_len`) goes to the hand-written kernel
+`kernels.ops.decode_attend`, which reads only each row's valid prefix, in
+the same arithmetic.  Everything else, and every CPU tensor, runs the
+plain code below, which is the kernel's plain arm.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.kernels import ops as KO
 from repro_torch.models.layers.rope import apply_rope
 
 NEG_INF = -1e30
@@ -83,12 +91,19 @@ def _scale(dims: AttnDims) -> float:
     return dims.head_dim ** -0.5
 
 
+@functools.lru_cache(maxsize=64)
+def _rounded_scale(dims: AttnDims, dtype: torch.dtype) -> float:
+    """The scale rounded to q's dtype, as the reference's weakly typed
+    scalar is (PyTorch would multiply by the f32 scale).  Cached: a decode
+    step asks for it once a layer."""
+    return float(torch.tensor(_scale(dims), dtype=dtype))
+
+
 def _scaled_f32(q: torch.Tensor, dims: AttnDims) -> torch.Tensor:
-    """``(q * scale)`` in q's dtype, then f32, grouped (B, Sq, Hkv, G, hd).
-    The scale is rounded to q's dtype first, as the reference's weakly
-    typed scalar is (PyTorch would multiply by the f32 scale)."""
+    """``(q * scale)`` in q's dtype, then f32, grouped (B, Sq, Hkv, G, hd),
+    the scale rounded first (`_rounded_scale`)."""
     B, Sq, _, hd = q.shape
-    s = float(torch.tensor(_scale(dims), dtype=q.dtype))
+    s = _rounded_scale(dims, q.dtype)
     return (q * s).float().reshape(B, Sq, dims.n_kv_heads, dims.q_per_kv, hd)
 
 
@@ -115,13 +130,28 @@ def attend_chunked(
     kv_chunk: int = 2048,
     k_scale: Optional[torch.Tensor] = None,  # (B, Skv, Hkv): int8 K/V
     v_scale: Optional[torch.Tensor] = None,
+    kv_len: Optional[torch.Tensor] = None,  # (B,) int32
 ) -> torch.Tensor:
     """Flash-style attention: a loop over KV chunks with running (max,
     sum, acc), the live score block (B, Hq, Sq, kv_chunk).  Exact, not an
     approximation.  Returns (B, Sq, Hq, hd).  With `k_scale`/`v_scale`,
-    `k`/`v` are int8 and each chunk is dequantized inside the loop."""
+    `k`/`v` are int8 and each chunk is dequantized inside the loop.
+
+    `kv_len` promises that the mask is a per-row length: `kv_valid` is
+    ``arange(Skv) < kv_len`` (or None, and then taken to be that),
+    `kv_positions` is the iota, and the causal mask drops nothing below
+    kv_len.  A one-token query (Sq 1) on CUDA tensors with no int8 scales
+    then runs the kernel `kernels.ops.decode_attend`, which reads each
+    row's first kv_len positions only; anything it does not take raises.
+    On the CPU `kv_len` changes nothing."""
+    if (kv_len is not None and q.shape[1] == 1 and k_scale is None
+            and v_scale is None and q.is_cuda):
+        return KO.decode_attend(q, k, v, kv_len,
+                                _rounded_scale(dims, q.dtype))
     B, Sq, Hq, hd = q.shape
     Skv = k.shape[1]
+    if kv_len is not None and kv_valid is None:
+        kv_valid = torch.arange(Skv, device=q.device) < kv_len[:, None]
     if Skv <= kv_chunk:
         if k_scale is not None:
             k = _dequant(k, k_scale).to(q.dtype)
@@ -210,6 +240,7 @@ def decode_attend(
         B, S_max)
     valid = pos < (length + 1)
     qpos = length.reshape(1, 1).expand(B, 1)
+    kv_len = (length + 1).reshape(1).expand(B).contiguous()
     out = attend_chunked(q, k, v, dims, qpos, pos, kv_valid=valid,
-                         kv_chunk=kv_chunk)
+                         kv_chunk=kv_chunk, kv_len=kv_len)
     return out, KVCacheSlice(k, v)

@@ -34,9 +34,13 @@ family's decode norm and the VLM's gate, are stored in f32
 `ssm_conv`, f32) into the caches in place (the reference donates them)
 and returns the same dict; the caller keeps every length below the
 cache's depth (the engine ends a request on `full`), since an index past
-it raises on the CPU and is a device-side assert on the card.  The MoE
-layer's aux loss is summed over the layers by `train_logits` and dropped
-by decode, as in the reference.
+it raises on the CPU and is a device-side assert on the card.  Off a
+mesh, self-attention's decode passes its mask as a length as well
+(`attend_chunked`'s `kv_len`, length + 1), so that on the card it runs the
+decode-attention kernel over each row's valid prefix; the int8 cache's
+and the sharded decode's do not.  The MoE layer's aux loss is summed over
+the layers by `train_logits` and dropped by decode, as in the
+reference.
 
 The int8 KV cache (`kv_int8`, dense and moe families): each new K/V row
 is quantized per (token, head) by `_q8_kv` and written with its bf16 scale
@@ -130,6 +134,7 @@ class _DecodeIndex(NamedTuple):
     qpos: torch.Tensor  # (B, 1) int32
     pos: torch.Tensor  # (B, S_max) int32
     valid: torch.Tensor  # (B, S_max) bool: pos < length + 1
+    kv_len: torch.Tensor  # (B,) int32: length + 1, `valid` as a length
 
 
 class _Layer(dict):
@@ -549,7 +554,7 @@ class Model(torch.nn.Module):
             with tr.span("model.attend", "model"):
                 out = attend_chunked(
                     q, k, v, self.attn_dims, idx.qpos, idx.pos,
-                    kv_valid=idx.valid, kv_chunk=self.kv_chunk)
+                    kv_chunk=self.kv_chunk, kv_len=idx.kv_len)
         y = out.reshape(B, 1, -1) @ p["wo"]
         return x + y
 
@@ -1212,7 +1217,8 @@ class Model(torch.nn.Module):
         idx = _DecodeIndex(
             rows=torch.arange(B, device=lengths.device),
             at=lengths.long(), qpos=lengths[:, None], pos=pos,
-            valid=pos < (lengths[:, None] + 1))
+            valid=pos < (lengths[:, None] + 1),
+            kv_len=(lengths + 1).to(torch.int32))
         if cfg.family == "hybrid":
             return self._hybrid_decode(params, caches, x, idx)
         if cfg.family == "vlm":

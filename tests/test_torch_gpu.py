@@ -1,5 +1,7 @@
-"""The port on the card: each CUDA kernel against its plain version, the
-fused window on the card against the same window on the CPU, the model
+"""The port on the card: each CUDA kernel against its plain version (the
+decode-attention kernel against `attend_chunked`'s plain arm, run on the
+card, and its launches a decode step), the fused window on the card
+against the same window on the CPU, the model
 path (reduced models of every family card against CPU, full-width llama3.2-3b
 and whisper-base decodes, one full-width MoE layer), and the int8 KV cache
 and training (reduced models' gradients, AdamW, the checkpoint drill and
@@ -363,6 +365,106 @@ def test_merge_sorted_refuses_rows_above_shared_memory():
     run = torch.zeros((1, 4), dtype=torch.int32, device=dev)
     with pytest.raises(RuntimeError, match="merge_sorted kernel launch"):
         KO.merge_sorted_runs(buf, buf, run, run)
+
+
+# decode_attend: (B, S, Hq, Hkv, hd, dtype).  The benchmark cell's shape
+# first (granite-8b: 64 slots of 4,096 positions, 32 query and 8 KV heads
+# of 128), then head widths 64 and 256 and groups G = 1, 3 (llama3.2-3b), 5
+# (qwen2.5-32b), 8 (gemma-2b's MQA) and 16 (two head groups a block), a
+# width whose row is not a power of two of 16-byte loads (40), and f32.
+DECODE = [(64, 4096, 32, 8, 128, "bf16"), (16, 2048, 16, 8, 64, "bf16"),
+          (8, 4096, 8, 1, 256, "bf16"), (8, 1024, 8, 8, 128, "bf16"),
+          (8, 1024, 24, 8, 128, "bf16"), (8, 1024, 40, 8, 128, "bf16"),
+          (4, 600, 16, 1, 64, "bf16"), (4, 300, 8, 2, 40, "bf16"),
+          (8, 2048, 16, 4, 64, "f32"), (4, 512, 8, 1, 256, "f32")]
+
+
+def _decode_case(B, S, Hq, Hkv, hd, dtype, dev, seed=0):
+    """q, K/V caches with finite garbage past each row's length, lengths
+    (1, 2, 60, S/2 - 1, S/2, S/2 + 1 and S, then drawn), and the dims."""
+    from repro_torch.models.layers.attention import AttnDims
+
+    td = torch.bfloat16 if dtype == "bf16" else torch.float32
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = [1, 2, 60, S // 2 - 1, S // 2, S // 2 + 1, S]
+    rng = np.random.default_rng(seed)
+    lens = (lens + list(rng.integers(1, S + 1, B)))[:B]
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=dev)
+    q = 3 * torch.randn((B, 1, Hq, hd), generator=gen, device=dev)
+    k, v = (torch.randn((B, S, Hkv, hd), generator=gen, device=dev)
+            for _ in range(2))
+    past = (torch.arange(S, device=dev)[None, :] >= kv_len[:, None])
+    for x in (k, v):
+        x[past] = 50 * torch.randn((int(past.sum()), Hkv, hd),
+                                   generator=gen, device=dev)
+    return (q.to(td), k.to(td), v.to(td), kv_len, past,
+            AttnDims(n_heads=Hq, n_kv_heads=Hkv, head_dim=hd))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd,dtype", DECODE)
+def test_decode_attend_kernel_matches_plain_arm(B, S, Hq, Hkv, hd, dtype):
+    """`attend_chunked` with the mask as a length (`kv_len`) runs the
+    kernel, once, and agrees with the same call on its plain arm (the mask
+    as `kv_valid`, 2,048-position chunks) within `KO.DECODE_TOL`; NaN written
+    past each row's length leaves the kernel's output bit for bit as it
+    was, so the kernel never reads there."""
+    from repro_torch.models.layers.attention import attend_chunked
+
+    dev = _card()
+    q, k, v, kv_len, past, dims = _decode_case(B, S, Hq, Hkv, hd, dtype,
+                                               dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+    qpos = (kv_len - 1)[:, None]
+    args = (q, k, v, dims, qpos, pos)
+    before = KO.LAUNCHES["decode_attend"]
+    got = attend_chunked(*args, kv_valid=~past, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert KO.LAUNCHES["decode_attend"] == before + 1
+    want = attend_chunked(*args, kv_valid=~past)
+    assert KO.LAUNCHES["decode_attend"] == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **KO.DECODE_TOL[got.dtype])
+    for x in (k, v):
+        x[past] = float("nan")
+    again = attend_chunked(*args, kv_len=kv_len)
+    assert torch.equal(again, got)
+
+
+@pytest.mark.gpu
+def test_decode_attend_clamps_lengths_and_refuses_what_it_does_not_take():
+    """A length past the cache reads the whole row and a length of 0 reads
+    0; inputs the kernel does not take raise, with no fallback."""
+    from repro_torch.models.layers.attention import attend_chunked
+
+    dev = _card()
+    q, k, v, kv_len, past, dims = _decode_case(4, 256, 8, 2, 64, "bf16",
+                                               dev)
+    over = torch.tensor([0, 256, 300, 1 << 30], dtype=torch.int32,
+                        device=dev)
+    got = KO.decode_attend(q, k, v, over, 0.125)
+    whole = KO.decode_attend(q, k, v, torch.full_like(over, 256), 0.125)
+    assert torch.equal(got[1:], whole[1:])
+    assert not bool(got[0].any())
+    bad = [((q.float(), k, v, kv_len, 0.125), TypeError),
+           ((q, k, v, kv_len.long(), 0.125), TypeError),
+           ((q, k.cpu(), v, kv_len, 0.125), ValueError),
+           ((q.expand(4, 2, 8, 64), k, v, kv_len, 0.125), ValueError),
+           ((q, k[:, :, :, :60], v[:, :, :, :60], kv_len, 0.125),
+            ValueError),
+           ((q, k.transpose(1, 2).contiguous().transpose(1, 2), v, kv_len,
+             0.125), ValueError),
+           ((q.repeat(1, 1, 9, 1), k[:, :, :1].contiguous(),
+             v[:, :, :1].contiguous(), kv_len, 0.125), ValueError)]
+    for a, err in bad:
+        with pytest.raises(err):
+            KO.decode_attend(*a)
+    with pytest.raises(TypeError):  # an int8 cache without its scales
+        attend_chunked(q, k.to(torch.int8), v.to(torch.int8), dims,
+                       (kv_len - 1)[:, None],
+                       torch.arange(256, device=dev).expand(4, 256),
+                       kv_len=kv_len)
 
 
 @pytest.mark.gpu
@@ -1093,6 +1195,57 @@ def test_reduced_model_on_the_card_equals_the_cpu(arch, dtype, monkeypatch):
     assert g.health() == c.health() and len(g.done_step) > 0
     if dtype == "f32":
         assert g.outputs == c.outputs
+
+
+@pytest.mark.gpu
+def test_decode_attend_launches_once_a_layer_of_a_card_decode():
+    """Reduced llama3.2-3b in bf16 on the card: each decode step launches
+    `decode_attend` once a layer; prefill, a training step (forward and
+    backward), an int8-cache decode and a sharded decode (a (1, 2) mesh
+    of two rank processes over gloo) launch it never."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.distributed import spawn
+    from repro_torch.models import params as TP
+    from repro_torch.models.io import init_caches
+    from repro_torch.models.registry import build_model
+    from torch_dist_ranks import redrawn_tree, sharded_decode_launches
+
+    dev = _card()
+    cfg = reduced_config("llama3.2-3b")
+    m = build_model(cfg, device=dev)
+    m8 = build_model(cfg, kv_int8=True, device=dev)
+    p = m.init(torch.Generator(device=dev).manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 9), device=dev,
+                        dtype=torch.int32)
+
+    def launched(fn):
+        before = KO.LAUNCHES["decode_attend"]
+        fn()
+        torch.cuda.synchronize()
+        return KO.LAUNCHES["decode_attend"] - before
+
+    def decode(model, kv_int8):
+        caches = init_caches(cfg, 2, 16, kv_int8=kv_int8, device=dev)
+        for t in range(3):
+            model.decode_step(p, caches, tok[:, t:t + 1], torch.full(
+                (2,), t, dtype=torch.int32, device=dev))
+
+    def train_step():
+        for _, w in TP.leaves(p):
+            if w.is_floating_point():
+                w.requires_grad_(True)
+        logits, _ = m.train_logits(p, {"tokens": tok[:, :8]})
+        m.loss(logits, tok[:, 1:]).backward()
+
+    assert launched(lambda: decode(m, False)) == 3 * cfg.n_layers
+    assert launched(lambda: decode(m8, True)) == 0
+    assert launched(lambda: m.prefill(p, {"tokens": tok})) == 0
+    assert launched(train_step) == 0
+    ranks = spawn(sharded_decode_launches, (1, 2), ("data", "model"),
+                  device="cuda", backend="gloo",
+                  args=("llama3.2-3b", redrawn_tree("llama3.2-3b")),
+                  timeout=300)
+    assert [r["decode_attend"] for r in ranks] == [0, 0]
 
 
 @pytest.mark.gpu

@@ -166,13 +166,38 @@ def _qkv(Hq, Hkv, B=2, S=64, hd=32, seed=0):
 @pytest.mark.parametrize("Hq,Hkv", HEADS)
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("kv_chunk", [64, 16])  # dense; chunked, 4 chunks
-def test_attend_chunked_matches_jax(Hq, Hkv, causal, kv_chunk):
+@pytest.mark.parametrize("mask", ["kv_valid", "kv_len"])
+def test_attend_chunked_matches_jax(Hq, Hkv, causal, kv_chunk, mask):
     """Both branches of `attend_chunked` (Skv <= kv_chunk, and the online
     softmax over 4 chunks), with `kv_valid` masking a ragged tail and one
-    row's first chunk whole (its running max starts at NEG_INF)."""
+    row's first chunk whole (its running max starts at NEG_INF).  With the
+    mask as a length (`kv_len`: a one-token query at each row's last valid
+    position, rows of 50 and 1 positions), the call equals bit for bit the
+    same call with the equivalent `kv_valid`, alone or beside it, and the
+    reference: on the CPU `kv_len` changes nothing."""
     q, k, v = _qkv(Hq, Hkv)
     B, S = q.shape[:2]
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+    if mask == "kv_len":
+        lens = np.array([50, 1], np.int32)
+        valid = pos < lens[:, None]
+        qpos = (lens - 1)[:, None]
+        q1 = q[np.arange(B), qpos[:, 0]][:, None]
+        jd = JA.AttnDims(n_heads=Hq, n_kv_heads=Hkv, head_dim=32,
+                         causal=causal)
+        td = TA.AttnDims(n_heads=Hq, n_kv_heads=Hkv, head_dim=32,
+                         causal=causal)
+        args = (_t(q1), _t(k), _t(v), td, _t(qpos), _t(pos))
+        want = TA.attend_chunked(*args, kv_valid=_t(valid),
+                                 kv_chunk=kv_chunk)
+        for kw in (dict(kv_len=_t(lens)),
+                   dict(kv_len=_t(lens), kv_valid=_t(valid))):
+            got = TA.attend_chunked(*args, kv_chunk=kv_chunk, **kw)
+            assert torch.equal(got, want), kw.keys()
+        _close(want, JA.attend_chunked(q1, k, v, jd, qpos, pos,
+                                       kv_valid=valid, kv_chunk=kv_chunk),
+               **LAYER_TOL)
+        return
     valid = np.ones((B, S), bool)
     valid[0, 40:] = False
     valid[1, :16] = False
@@ -621,6 +646,29 @@ def test_decode_continues_prefill_like_recompute():
     torch.testing.assert_close(got, want, rtol=1e-5, atol=2e-5)
     for k in ("k", "v"):
         torch.testing.assert_close(caches[k], pre[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,kv_int8", [("llama3.2-3b", False),
+                                          ("llama3.2-3b", True),
+                                          ("granite-moe-1b-a400m", False),
+                                          ("jamba-1.5-large-398b", False)])
+def test_cpu_decode_step_launches_no_kernel(arch, kv_int8):
+    """On the CPU a decode step runs the plain arms only: it launches no
+    hand-written kernel (`kernels.ops.LAUNCHES` unchanged), though its
+    self-attention passes the mask as a length (`kv_len`)."""
+    from repro_torch.kernels import ops as KO
+
+    cfg = reduced_config(arch)
+    tm = build_model(cfg, kv_int8=kv_int8, device="cpu")
+    tp = tm.init(torch.Generator().manual_seed(2))
+    caches = init_caches(cfg, 2, 16, kv_int8=kv_int8, device="cpu")
+    before = dict(KO.LAUNCHES)
+    tok = torch.full((2, 1), 3, dtype=torch.int32)
+    for t in range(1, 3):
+        logits, caches = tm.decode_step(
+            tp, caches, tok, torch.full((2,), t, dtype=torch.int32))
+    assert bool(torch.isfinite(logits.float()).all())
+    assert KO.LAUNCHES == before
 
 
 def test_kv_int8_raises_until_its_slice():

@@ -293,6 +293,27 @@ def decode_run(model, params, caches, B, steps, rows=slice(None)):
     return logits, toks
 
 
+def sharded_decode_launches(mesh, arch, tree, steps=2, B=4, S=16):
+    """`steps` decode steps of the sharded model on bf16 caches: the hand
+    kernels this rank launched in them (`kernels.ops.LAUNCHES`), by
+    name."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed.sharding import local_shard
+    from repro_torch.kernels import ops as KO
+    from repro_torch.models.io import init_caches
+    from repro_torch.train.steps import batch_spec_tree
+
+    cfg, model, params = _sharded_model(mesh, arch, tree,
+                                        dtype=torch.bfloat16)
+    specs = batch_spec_tree(cfg, ShapeConfig("d", S, B, "decode"),
+                            model.rules, mesh)
+    caches = init_caches(cfg, B, S, mesh=mesh, specs=specs["caches"])
+    rows = local_shard(torch.arange(B), mesh, specs["lengths"])
+    before = dict(KO.LAUNCHES)
+    decode_run(model, params, caches, B, steps, rows)
+    return {k: n - before[k] for k, n in KO.LAUNCHES.items()}
+
+
 def sharded_families(mesh, cases, steps=4, B=4, S=16):
     """For each (name, arch, tree, batch, variant): the loss, aux, logits
     and every gradient of the sharded model (f32, remat on), each gathered
