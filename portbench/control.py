@@ -6,11 +6,12 @@ size (the benchmark's own runs do not run them).
         --seconds 51
 
 Each seed's run prints the program's checks and verdict, and the
-control's: the float32 reference with every matrix in float8 (e4m3, a
-scale per output column) put in the program's place.  The token it puts
-first at each position of the same sequences goes through the run's own
-comparison (`systems/serve.py`'s `judge`, at the committed limits), whose
-verdict has to come out false.
+control's: the cell's family's float32 reference with every matrix in
+float8 (for the dense family e4m3, a scale per output column) put in the
+program's place.  The token it puts first at each position of the same
+sequences goes through the run's own comparison (`systems/serve.py`'s
+`judge`, at the configuration's committed limit), whose verdict has to
+come out false.
 """
 
 import argparse
@@ -23,13 +24,13 @@ CHECKOUT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(CHECKOUT), str(CHECKOUT / "src")]
 
 from portbench import harness  # noqa: E402
-from portbench.ref import dense as RD  # noqa: E402
 
 
-def fp8_control(cfg, params, seqs):
-    """The token the float8 reference puts first at each position."""
-    return [lg.argmax(dim=-1)
-            for lg in RD.forward(cfg, params, seqs, transform=RD.quantize_fp8)]
+def fp8_control(fam, cfg, params, seqs):
+    """The token the family's float8 reference puts first at each
+    position."""
+    return [lg.argmax(dim=-1) for lg in fam.forward(
+        cfg, params, seqs, transform=fam.control_transform)]
 
 
 def main(argv=None) -> int:

@@ -1,22 +1,38 @@
 """The benchmark's general parts: finding cells, configurations, traffic
 generators, systems and per-layer metrics by name; the card's identity;
 the profiler's trace reduced to busy time, idle gaps and device time by
-range; and the result line.
+range; the card's busy time over a window run in profiled chunks
+(`CardClock`); and the result line.
 
 Everything that belongs to one configuration, one traffic mix or one
 metric is a file of its own under the benchmark's folders:
 
-    configs/<config>.json     a deployment: its source, sizes, cuts, and
-                              the `system` that serves it
+    configs/<config>.json     a deployment: its source, sizes, cuts, the
+                              `system` that serves it and, for a model,
+                              its `family`
     workloads/<cell>.json     a cell: its configuration, traffic mix,
                               chips and why
     mixes/<mix>.json          a traffic mix: its `kind` and parameters
     traffic/<kind>.py         one generator per traffic kind
     systems/<system>.py       one driver per system kind
+    families/<family>.py      one module per model family, all of the
+                              model that a system module takes
     metrics/<metric>.py       one reader per per-layer metric
 
-A `Catalog` looks each name up in its roots in order, so a cell added in
-another directory needs no edit of a file that is here.
+A family module gives only what is the model's: `model_config(cfg)` (the
+program's `ModelConfig`), `make_weights(cfg, seed, device, dtype=None)`
+(on the device, from the seed), `forward(cfg, params, seqs,
+transform=None)` (the plain float32 reference: logits per sequence),
+`control_transform` (the control's lower precision, a `transform` of
+`forward`), `token_flops(cfg, context)` and `step_bytes(cfg, contexts,
+slots)` (a decoded token's FLOPs and a step's least bytes),
+`state_row_bytes(cfg)` (a position's cache bytes) and `ATTENTION`, the
+(module, attribute) of its attention call.  The comparison that decides
+`correct` and the names of the traced ranges are the system module's; the limit
+of that comparison is the configuration's own.
+
+A `Catalog` looks each name up in its roots in order, so a cell or a
+family added in another directory needs no edit of a file that is here.
 """
 
 from __future__ import annotations
@@ -204,6 +220,60 @@ def trace_events(prof) -> List[dict]:
 
 
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy(events, device_type) -> tuple:
+    """(seconds in which a call ran on the device, number of such calls)
+    from a finished profiler's events
+    (`prof.profiler.kineto_results.events()`): the union of the calls on
+    `device_type` (a `torch.autograd.DeviceType`), leaving out the ranges
+    the host annotated onto it."""
+    spans = [(e.start_ns(), e.start_ns() + e.duration_ns()) for e in events
+             if e.device_type() == device_type
+             and not e.is_user_annotation()]
+    return sum(b - a for a, b in _merge(spans)) / 1e9, len(spans)
+
+
+class CardClock:
+    """The card's busy seconds over a timed window that runs in chunks,
+    each under a profiler of its own that records the device's calls
+    (so that no chunk outgrows the profiler's buffers).  A chunk ends
+    with the device synchronized, so every call its work launched lies
+    inside it; the chunks' events are reduced once the window has
+    closed (`busy`).  The profiler's first start, which loads its tracing
+    library, falls in the first chunk: it holds up the host and no device
+    call, so it leaves the busy time alone and set-up without it."""
+
+    def __init__(self, device):
+        self.device = device
+        self._profs = []
+
+    @contextlib.contextmanager
+    def chunk(self):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        cuda = self.device.type == "cuda"
+        acts = [ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU]
+        with profile(activities=acts) as prof:
+            yield
+            if cuda:
+                torch.cuda.synchronize(self.device)
+        self._profs.append(prof)
+
+    def busy(self) -> tuple:
+        """(busy seconds, device calls) over every chunk so far; forgets
+        them.  On the CPU the host's own ops stand in for the device's
+        calls."""
+        from torch.autograd import DeviceType
+
+        on = DeviceType.CUDA if self.device.type == "cuda" else DeviceType.CPU
+        s, n = 0.0, 0
+        for prof in self._profs:
+            b, k = device_busy(prof.profiler.kineto_results.events(), on)
+            s, n = s + b, n + k
+        self._profs.clear()
+        return s, n
 
 
 def _merge(intervals):

@@ -121,11 +121,3 @@ def forward(cfg: dict, params: Dict, sequences: List[torch.Tensor],
         fn = params["final_norm"]
         return [rms_norm(x, fn, eps) @ head for x in xs]
 
-
-def served_gap(logits: torch.Tensor, served: torch.Tensor) -> float:
-    """The widest gap by which a served token's logit lies below the best
-    logit at its position: logits (L, V) at positions 0..L-1, served (L,)
-    the token the program emitted after each position."""
-    best = logits.max(dim=-1).values
-    got = logits.gather(1, served.long()[:, None])[:, 0]
-    return float((best - got).max())

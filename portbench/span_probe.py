@@ -112,17 +112,16 @@ _new_profiler = harness.new_profiler
 _trace_events = harness.trace_events
 
 
-def replay_reads(cell, seed: int, windows, first: int, count: int,
+def replay_reads(system, cell, seed: int, windows, first: int, count: int,
                  device):
     """Host reads by site of scheduler windows [first, first + count) when
     the recorded windows run again on the CPU from the seed's draws (made
-    on `device`, as the run made them)."""
+    on `device` by the cell's `system`, as the run made them)."""
     from repro_torch.serve.scheduler import SmartPQScheduler
     from repro_torch.utils import hostsync
 
-    serve = harness.Catalog().module("systems", "serve")
     sc = cell["config_file"]["scheduler"]
-    draws = serve.sched_draws(sc, seed, device)
+    draws = system.sched_draws(sc, seed, device)
     sched = SmartPQScheduler(
         batch_size=sc["lanes"], seed=seed % 2**31, device="cpu",
         draws=tuple(d.cpu() for d in draws))
@@ -176,8 +175,9 @@ def probe_run(run: harness.Run, tracing: str, bench: dict) -> dict:
         result["clock_bound_us"] = bound
         result["spans"] = sum(e.get("ph") == "X" for e in placed)
         print(spans.idle_line(red), flush=True)
-    replay = replay_reads(cell, run.seed, probe.windows, probe.setup_windows,
-                          probe.timed_windows, run.device)
+    replay = replay_reads(system, cell, run.seed, probe.windows,
+                          probe.setup_windows, probe.timed_windows,
+                          run.device)
     sched_card = {k: v for k, v in card.items()
                   if k.startswith(spans.SCHED_SITES)}
     result["replay_matches"] = replay == sched_card

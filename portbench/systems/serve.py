@@ -1,30 +1,41 @@
 """The model-serving cells: `ServeEngine` with a model behind its
 `SmartPQScheduler`, decoding every slot each tick, for `--seconds`.
 
-Set-up makes the weights on the device from the seed (one draw a stacked
-leaf, in bf16), builds the engine (its scheduler's queue trains its
-decision tree), queues the mix's requests in one window, whose first tick
-fills every slot, and decodes the mix's `warm_ticks` more, so that the
-window sees the backlog's steady state of contexts and not its cold
-start.  The timed loop then runs windows of `sched_window` ticks
-(`tick_window`, then one decode step a tick) until the seconds are
-spent.  Every tick's draws for the scheduler's queue are
-made here from the seed.
+The configuration's `family` names a module under `families/` (found by
+the catalog, so a new family is a new file) that gives all that is the
+model's: its weights, the program's `ModelConfig`, the float32 reference
+and its float8 control, the FLOPs and least bytes of a step, a position's
+cache bytes and its attention call, labelled in the traced windows.  The
+comparison that decides `correct` is this module's; its limit is the
+configuration's `logit_gap_limit`, set from that configuration's readings.
 
-End to end: `tokens_per_s` is the tokens the timed ticks emitted over the
-window's seconds, and `itl_p95_ms` the 95th percentile of every gap
-between two consecutive tokens of one request, both inside the window (a
-tick's tokens reach the host at its one read, when the tick returns).
-The counters of the traced run (`mfu`, `occupancy`, `sched_ms_per_tick`)
-are read over the same window, which runs without the profiler; its
+Set-up makes the family's weights on the device from the seed, builds the
+engine (its scheduler's queue trains its decision tree), queues the mix's
+requests in one window, whose first tick fills every slot, and decodes
+the mix's `warm_ticks` more, so that the window sees the backlog's steady
+state of contexts and not its cold start.  The timed loop then runs
+windows of `sched_window` ticks (`tick_window`, then one decode step a
+tick) until the seconds are spent.  Every tick's draws for the
+scheduler's queue are made here from the seed.
+
+End to end: `card_us_per_token` is the card's busy time over the window
+(the union of its device calls, `harness.CardClock`: the window runs in
+chunks of `CHUNK_WINDOWS` under a profiler that records the device alone)
+over the tokens the window's ticks emitted.  On the host clock,
+`tokens_per_s` is those tokens over the window's seconds and `itl_p95_ms`
+the 95th percentile of every gap between two consecutive tokens of one
+request, both inside the window (a tick's tokens reach the host at its one
+read, when the tick returns); the host's pace sets both, so they are read
+from the traced run (per layer), whose window runs without the profiler,
+as do its other counters (`mfu`, `occupancy`, `sched_ms_per_tick`); its
 trace covers two more scheduling windows after the window has closed.
 
 Once the window has closed, the peak read and the engine's caches freed,
 the check runs: a sample drawn from the seed of the requests the window
-finished (the longest among them) goes through the float32 reference
-(`portbench.ref.dense`) over its first token and its served tokens, and
-the widest gap by which a served token's logit lies below the reference's
-best is held to its limit; and the scheduler's dispatches, tick by tick,
+finished (the longest among them) goes through the family's float32
+reference over its first token and its served tokens, and the widest gap
+by which a served token's logit lies below the reference's best is held
+to the configuration's limit; and the scheduler's dispatches, tick by tick,
 are held to `portbench.ref.sched` on the same arrivals, budgets and draws.
 The reference's queue steps in the mode the program reports for each
 tick, and checks only that a mode changes on a decision tick: which mode
@@ -34,79 +45,42 @@ the decision tree picks is not checked.
 from __future__ import annotations
 
 import contextlib
+import importlib
 import math
 import time
 
 import numpy as np
 
-from portbench import costs, harness
-from portbench.ref import dense as RD
+from portbench import harness
 from portbench.ref import pq as R
 from portbench.ref import sched as RS
 
-# The widest served-token logit gap a sound run may read, set between the
-# program's readings on 20 seeds (at most 0.379) and the float8 control's
-# on 3 (at least 2.666) on one H100, with more room above the first
-# (PERF.md, section 6).
-LOGIT_GAP_LIMIT = 1.1
 # At most this many served tokens go through the reference: every request
 # the window finished, unless they hold more.
 CHECK_TOKENS = 8192
+# Scheduling windows a profiled chunk of the end-to-end run's window holds
+# (64 ticks at K = 4: some 10^5 device calls at granite-8b's 36 layers).
+CHUNK_WINDOWS = 16
 
 
-def judge(gap: float, bad_ticks: int, mode_faults: int, checked: int):
+def served_gap(logits, served) -> float:
+    """The widest gap by which a served token's logit lies below the best
+    logit at its position: logits (L, V) at positions 0..L-1, served (L,)
+    the token the program emitted after each position."""
+    best = logits.max(dim=-1).values
+    got = logits.gather(1, served.long()[:, None])[:, 0]
+    return float((best - got).max())
+
+
+def judge(gap: float, bad_ticks: int, mode_faults: int, checked: int,
+          gap_limit: float):
     """The numbers compared, as (name, value, limit), and the verdict."""
-    checks = [("logit_gap", gap, LOGIT_GAP_LIMIT),
+    checks = [("logit_gap", gap, gap_limit),
               ("dispatch_ticks_mismatched", bad_ticks, 0),
               ("mode_changes_off_decision", mode_faults, 0)]
     correct = (all(v <= lim for _, v, lim in checks) and checked > 0
                and math.isfinite(gap))
     return checks, correct
-
-
-def model_config(cfg: dict):
-    from repro_torch.configs.base import ModelConfig
-
-    return ModelConfig(
-        name=cfg["arch"], family=cfg["family"], n_layers=cfg["n_layers"],
-        d_model=cfg["d_model"], n_heads=cfg["n_heads"],
-        n_kv_heads=cfg["n_kv_heads"], d_ff=cfg["d_ff"], vocab=cfg["vocab"],
-        head_dim=cfg["head_dim"], act=cfg["act"], norm=cfg["norm"],
-        rope_theta=cfg["rope_theta"], tie_embeddings=cfg["tie_embeddings"])
-
-
-def make_weights(cfg: dict, seed: int, device, dtype=None):
-    """The dense decoder's weights, layer-stacked, from one generator on
-    `device`: N(0, s^2) with s = init_std for the projections
-    (init_std / sqrt(2 L) for wo and w_down), 1 / sqrt(D) for the
-    embedding and the unembedding, norm_init_std for the norm scales."""
-    import torch
-
-    dtype = dtype or getattr(torch, cfg["dtype"])
-    g = torch.Generator(device=device).manual_seed(seed % 2**63)
-    D, L, V = cfg["d_model"], cfg["n_layers"], cfg["vocab"]
-    hd, F = cfg["head_dim"], cfg["d_ff"]
-    q, kv = cfg["n_heads"] * hd, cfg["n_kv_heads"] * hd
-    s, sn = cfg["init_std"], cfg["norm_init_std"]
-    so = s / math.sqrt(2 * L)
-    se = 1.0 / math.sqrt(D)
-
-    def draw(shape, scale):
-        return torch.randn(shape, generator=g, device=device,
-                           dtype=dtype).mul_(scale)
-
-    params = {
-        "embed": draw((V, D), se),
-        "final_norm": draw((D,), sn),
-        "attn": {"norm": draw((L, D), sn), "wq": draw((L, D, q), s),
-                 "wk": draw((L, D, kv), s), "wv": draw((L, D, kv), s),
-                 "wo": draw((L, q, D), so)},
-        "mlp": {"norm": draw((L, D), sn), "w_gate": draw((L, D, F), s),
-                "w_up": draw((L, D, F), s), "w_down": draw((L, F, D), so)},
-    }
-    if not cfg["tie_embeddings"]:
-        params["head"] = draw((D, V), se)
-    return params
 
 
 def sched_draws(sc: dict, seed: int, device):
@@ -136,13 +110,12 @@ def token_gaps(ticks):
     return gaps
 
 
-def kv_line(cfg: dict, ticks) -> str:
+def kv_line(cfg: dict, ticks, row: int) -> str:
     """What the window's contexts fill of the K/V cache the engine holds:
-    `ticks` is [(t, [(uid, context)])]."""
+    `ticks` is [(t, [(uid, context)])], `row` a position's cache bytes."""
     ec = cfg["engine"]
     ctx = [c for _, d in ticks for _, c in d]
     mean = float(np.mean(ctx)) if ctx else 0.0
-    row = costs.kv_row_bytes(cfg)
     filled = len(ctx) / max(len(ticks), 1) * mean * row
     held = ec["batch_size"] * ec["max_seq"] * row
     return (f"[portbench] contexts in the window: mean {mean:.1f}, max "
@@ -207,25 +180,28 @@ def run(run: harness.Run, faults=None, control=None) -> harness.Outcome:
     """One run of a serving cell.  `faults` (tests only) wraps the engine
     to plant a fault under the timed path.  `control` (`portbench/
     control.py`) stands in the program's place once the check has run:
-    called with (cfg, params, sequences) it gives the tokens it puts first
-    at each position of the same sequences, and those go through the same
-    comparison as the served ones; its checks and verdict are kept under
-    ``record["control"]``."""
+    called with (family, cfg, params, sequences) it gives the tokens it
+    puts first at each position of the same sequences, and those go
+    through the same comparison as the served ones; its checks and verdict
+    are kept under ``record["control"]``.  A family the catalog lacks, or a
+    configuration without its `logit_gap_limit`, raises `KeyError` before
+    anything is made."""
     import torch
     from torch.profiler import record_function
 
-    from repro_torch.models import model as M
     from repro_torch.serve.engine import EngineConfig, ServeEngine
     from repro_torch.serve.scheduler import Request
 
     cfg, mix = run.cell["config_file"], run.cell["mix"]
+    fam = run.catalog.module("families", cfg["family"])
+    gap_limit = float(cfg["logit_gap_limit"])
     ec, sc = cfg["engine"], cfg["scheduler"]
     dev = run.device
     traffic = run.catalog.module("traffic", mix["kind"])
-    params = make_weights(cfg, run.seed, dev)
+    params = fam.make_weights(cfg, run.seed, dev)
     draws = sched_draws(sc, run.seed, dev)
     engine = ServeEngine(
-        model_config(cfg), params,
+        fam.model_config(cfg), params,
         EngineConfig(batch_size=ec["batch_size"], max_seq=ec["max_seq"],
                      kv_chunk=ec["kv_chunk"], sched_window=ec["sched_window"]),
         seed=run.seed % 2**31, device=dev, draws=draws)
@@ -248,22 +224,31 @@ def run(run: harness.Run, faults=None, control=None) -> harness.Outcome:
             advance([[]] * K)
         if dev.type == "cuda":
             torch.cuda.synchronize()
+        # the end-to-end run times the card over its whole window; the
+        # traced run's window runs without the profiler, for its counters
+        card = None if run.trace else harness.CardClock(dev)
         n_setup_ticks = len(rec.ticks)
         sched0 = rec.sched_s
         t_first = time.perf_counter()
         setup_s = t_first - run.t0
-        while True:
-            advance([[]] * K)
-            if time.perf_counter() - t_first >= run.seconds:
-                break
+        done = False
+        while not done:
+            with card.chunk() if card else contextlib.nullcontext():
+                for _ in range(CHUNK_WINDOWS):
+                    advance([[]] * K)
+                    done = time.perf_counter() - t_first >= run.seconds
+                    if done:
+                        break
         elapsed = time.perf_counter() - t_first
         sched_s = rec.sched_s - sched0
         n_window_ticks = len(rec.ticks)
         prof = None
         if run.trace:  # two more windows, under the profiler
             prof = harness.new_profiler()
+            attn_mod, attn_fn = fam.ATTENTION
             targets = [(engine, "_decode", "serve.decode"),
-                       (M, "attend_chunked", "serve.attention")]
+                       (importlib.import_module(attn_mod), attn_fn,
+                        "serve.attention")]
             with harness.labelled(targets), prof:
                 with record_function(harness.TRACED):
                     advance([[]] * K)
@@ -278,15 +263,22 @@ def run(run: harness.Run, faults=None, control=None) -> harness.Outcome:
     tokens = sum(len(d) for _, d in ticks)
     gaps = token_gaps([(t, [u for u, _ in d]) for t, d in ticks])
     itl_p95 = float(np.percentile(gaps, 95)) * 1e3 if gaps else float("nan")
-    flops = sum(costs.dense_token_flops(cfg, c)
+    flops = sum(fam.token_flops(cfg, c)
                 for _, d in ticks for _, c in d)
     record = {
         "ticks": len(ticks), "window_s": elapsed, "tokens": tokens,
         "sched_ms_per_tick": sched_s * 1e3 / max(len(ticks), 1),
         "occupancy": 100.0 * tokens / max(len(ticks) * ec["batch_size"], 1),
         "mfu": 100.0 * flops / elapsed / harness.PEAK_BF16_FLOPS,
+        "itl_p95_ms": itl_p95,
     }
-    print(kv_line(cfg, ticks), flush=True)
+    card_us = float("nan")
+    if card is not None:
+        busy_s, calls = card.busy()
+        record.update(card_busy_s=busy_s, card_calls=calls)
+        if calls and tokens:
+            card_us = busy_s * 1e6 / tokens
+    print(kv_line(cfg, ticks, fam.state_row_bytes(cfg)), flush=True)
 
     # -- the check, once the window has closed ---------------------------
     finished = sorted(u for i, u in rec.done if i >= n_setup_ticks)
@@ -321,11 +313,11 @@ def run(run: harness.Run, faults=None, control=None) -> harness.Outcome:
         served.append(torch.tensor(out, device=dev))
         checked += len(out)
     if seqs:
-        logits = RD.forward(cfg, params, seqs)
-        gap = max(RD.served_gap(lg, sv) for lg, sv in zip(logits, served))
+        logits = fam.forward(cfg, params, seqs)
+        gap = max(served_gap(lg, sv) for lg, sv in zip(logits, served))
         if control is not None:
-            firsts = control(cfg, params, seqs)
-            ctrl_gap = max(RD.served_gap(lg, tok)
+            firsts = control(fam, cfg, params, seqs)
+            ctrl_gap = max(served_gap(lg, tok)
                            for lg, tok in zip(logits, firsts))
         del logits
 
@@ -339,11 +331,12 @@ def run(run: harness.Run, faults=None, control=None) -> harness.Outcome:
                            for t in range(Kw)])
         cursor += Kw
         bad_ticks += sum(a != b for a, b in zip(want, got))
-    checks, correct = judge(gap, bad_ticks, len(ref.pq.faults), checked)
+    checks, correct = judge(gap, bad_ticks, len(ref.pq.faults), checked,
+                            gap_limit)
     record["checked_tokens"] = checked
     if control is not None and seqs:
         c_checks, c_correct = judge(ctrl_gap, bad_ticks, len(ref.pq.faults),
-                                    checked)
+                                    checked, gap_limit)
         record["control"] = {"checks": c_checks, "correct": c_correct}
 
     if prof is not None:
@@ -352,11 +345,11 @@ def run(run: harness.Run, faults=None, control=None) -> harness.Outcome:
         record.update(
             trace=harness.reduce_trace(harness.trace_events(prof)),
             traced_ticks=len(traced_ctx),
-            traced_min_bytes=sum(costs.dense_step_bytes(cfg, c, len(c))
+            traced_min_bytes=sum(fam.step_bytes(cfg, c, len(c))
                                  for c in traced_ctx))
     return harness.Outcome(
         correct=correct, attempted=len({u for _, d in ticks for u, _ in d}),
         failed=0,
-        e2e={"tokens_per_s": tokens / elapsed, "itl_p95_ms": itl_p95,
-             "setup_s": setup_s},
+        e2e={"card_us_per_token": card_us, "tokens_per_s": tokens / elapsed,
+             "itl_p95_ms": itl_p95, "setup_s": setup_s},
         record=record, checks=checks, peak_bytes=peak)

@@ -1,7 +1,8 @@
-"""The benchmark's files: cells, configurations, mixes and metrics found by
-name; BENCHMARK.json within the contract it is written to; a new cell added
-as files alone; no module of the JAX stack or the JAX package imported;
-and `run.py` refusing to run without a card."""
+"""The benchmark's files: cells, configurations, model families, mixes and
+metrics found by name; BENCHMARK.json within the contract it is written
+to; a new cell and a new model family added as files alone; no module of
+the JAX stack or the JAX package imported; and `run.py` refusing to run
+without a card."""
 
 import ast
 import json
@@ -9,6 +10,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -20,6 +22,10 @@ CHECKOUT = HERE.parent
 BENCH = json.loads((CHECKOUT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
+# What `systems/serve.py` takes from a configuration's family module.
+FAMILY_CONTRACT = ("model_config", "make_weights", "forward",
+                   "control_transform", "token_flops", "step_bytes",
+                   "state_row_bytes", "ATTENTION")
 
 
 def test_every_cell_is_found_by_name_with_its_configuration_and_mix():
@@ -33,6 +39,14 @@ def test_every_cell_is_found_by_name_with_its_configuration_and_mix():
         assert cell["config_file"]["system"] == "serve"
         cat.module("systems", cell["config_file"]["system"])
         cat.module("traffic", cell["mix"]["kind"])
+        fam = cat.module("families", cell["config_file"]["family"])
+        assert [n for n in FAMILY_CONTRACT if not hasattr(fam, n)] == []
+        assert len(fam.ATTENTION) == 2
+        assert all(isinstance(x, str) for x in fam.ATTENTION)
+        # the comparison that decides `correct` is the system's, its limit
+        # the configuration's
+        assert not {"served_gap", "LOGIT_GAP_LIMIT", "judge"} & set(vars(fam))
+        assert cell["config_file"]["logit_gap_limit"] > 0
     with pytest.raises(KeyError):
         cat.cell("no-such-cell")
 
@@ -94,9 +108,13 @@ def test_benchmark_json_keeps_to_the_contract():
     assert len(json.dumps(BENCH)) < 64 * 1024
 
 
+def _benchmark_files():
+    return sorted((p, p.stat().st_mtime_ns) for p in HERE.rglob("*")
+                  if p.is_file() and "__pycache__" not in p.parts)
+
+
 def test_a_new_cell_is_new_files_alone(tmp_path):
-    before = sorted((p, p.stat().st_mtime_ns) for p in HERE.rglob("*")
-                    if p.is_file() and "__pycache__" not in p.parts)
+    before = _benchmark_files()
     (tmp_path / "workloads").mkdir()
     (tmp_path / "mixes").mkdir()
     (tmp_path / "metrics").mkdir()
@@ -119,9 +137,118 @@ def test_a_new_cell_is_new_files_alone(tmp_path):
     assert "g8b-decode-long" in cat.cells() and "g8b-decode-4k" in cat.cells()
     metric = cat.module("metrics", "tokens_per_tick.serve")
     assert metric.read({"tokens": 640, "ticks": 10}) == 64.0
-    after = sorted((p, p.stat().st_mtime_ns) for p in HERE.rglob("*")
-                   if p.is_file() and "__pycache__" not in p.parts)
-    assert before == after
+    assert _benchmark_files() == before
+
+
+TOY_FAMILY = '''"""The dense family's functions, each call logged."""
+from portbench import harness
+
+DENSE = harness.Catalog().module("families", "dense")
+CALLS = []
+
+
+def _logged(name):
+    def call(*a, **kw):
+        CALLS.append(name)
+        return getattr(DENSE, name)(*a, **kw)
+    return call
+
+
+for _name in ("make_weights", "forward", "control_transform",
+              "token_flops", "step_bytes", "state_row_bytes"):
+    globals()[_name] = _logged(_name)
+
+
+def model_config(cfg):
+    CALLS.append("model_config")
+    return DENSE.model_config(dict(cfg, family="dense"))  # the program's
+
+
+def __getattr__(name):  # read on use, so that the read is logged
+    if name == "ATTENTION":
+        CALLS.append(name)
+        return DENSE.ATTENTION
+    raise AttributeError(name)
+'''
+
+
+def _toy_cell(tmp_path, family, **config):
+    """A cut-down serving cell under `tmp_path` whose configuration names
+    `family`, at `test_portbench_faults_serve.small()`'s size, with the
+    keys of `config` set."""
+    from portbench.test_portbench_faults_serve import small
+
+    base = small()
+    for kind in ("configs", "mixes", "workloads"):
+        (tmp_path / kind).mkdir(exist_ok=True)
+    cfg = dict(base["config_file"], family=family, **config)
+    (tmp_path / "configs" / f"{family}-small.json").write_text(
+        json.dumps(cfg))
+    (tmp_path / "mixes" / "short-backlog.json").write_text(
+        json.dumps(base["mix"]))
+    (tmp_path / "workloads" / f"{family}-decode.json").write_text(
+        json.dumps({"config": f"{family}-small", "traffic": "short-backlog",
+                    "chips": 1, "why": "a family added as files"}))
+    return f"{family}-decode"
+
+
+def test_a_new_family_is_new_files_alone(tmp_path, monkeypatch):
+    import torch
+
+    before = _benchmark_files()
+    (tmp_path / "families").mkdir()
+    (tmp_path / "families" / "toy.py").write_text(TOY_FAMILY)
+    cat = harness.Catalog([HERE, tmp_path])
+    name = _toy_cell(tmp_path, "toy", logit_gap_limit=1.0)
+    events = []
+
+    def trace_events(prof, _inner=harness.trace_events):
+        got = _inner(prof)
+        events.extend(got)
+        return got
+
+    monkeypatch.setattr(harness, "trace_events", trace_events)
+    toy = cat.module("families", "toy")
+    try:
+        run = harness.Run(cell=cat.cell(name), seed=2**31 + 7, seconds=2.0,
+                          trace=True, device=torch.device("cpu"),
+                          t0=time.perf_counter(), catalog=cat)
+        out = cat.module("systems", "serve").run(run)
+    finally:
+        sys.modules.pop(toy.__name__)
+    assert out.correct, out.checks
+    assert ("logit_gap", out.checks[0][1], 1.0) == out.checks[0]
+    assert {"model_config", "make_weights", "forward", "token_flops",
+            "step_bytes", "state_row_bytes", "ATTENTION"} <= set(toy.CALLS)
+    assert out.record["mfu"] > 0 and out.record["traced_min_bytes"] > 0
+    ranges = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    # the system's fixed names, which the per-layer readers read
+    assert {"serve.attention", "serve.decode"} <= ranges
+    assert _benchmark_files() == before
+
+
+def test_a_family_the_catalog_lacks_raises_before_any_weights(tmp_path):
+    cat = harness.Catalog([HERE, tmp_path])
+    name = _toy_cell(tmp_path, "no-such-family")
+    # a device any use of which fails: the lookup comes before it is used
+    run = harness.Run(cell=cat.cell(name), seed=5, seconds=1.0, trace=False,
+                      device=object(), t0=time.perf_counter(), catalog=cat)
+    with pytest.raises(KeyError, match="no-such-family"):
+        cat.module("systems", "serve").run(run)
+
+
+def test_a_configuration_without_its_gap_limit_raises_before_any_weights(
+        tmp_path):
+    cat = harness.Catalog([HERE, tmp_path])
+    name = _toy_cell(tmp_path, "dense")
+    path = tmp_path / "configs" / "dense-small.json"
+    cfg = json.loads(path.read_text())
+    del cfg["logit_gap_limit"]
+    path.write_text(json.dumps(cfg))
+    run = harness.Run(cell=cat.cell(name), seed=5, seconds=1.0, trace=False,
+                      device=object(), t0=time.perf_counter(), catalog=cat)
+    with pytest.raises(KeyError, match="logit_gap_limit"):
+        cat.module("systems", "serve").run(run)
 
 
 FORBIDDEN = {"jax", "jaxlib", "flax", "repro", "benchmarks"}

@@ -12,6 +12,7 @@ from portbench.systems import serve
 
 CAT = harness.Catalog()
 G8B = CAT.cell("g8b-decode-4k")["config_file"]
+dense = CAT.module("families", "dense")
 
 
 def test_p95_is_over_every_gap_of_every_request():
@@ -95,10 +96,72 @@ def test_readers_on_fixed_records():
     assert math.isfinite(read("decode_dev_ms.serve", dict(sv, trace=tr2)))
 
 
+def test_host_clock_readers_read_the_window():
+    read = lambda n, rec: CAT.module("metrics", n).read(rec)  # noqa: E731
+    sv = {"ticks": 300, "tokens": 19_000, "window_s": 20.0,
+          "itl_p95_ms": 61.5}
+    assert read("tokens_per_s.serve", sv) == 950.0
+    assert read("itl_p95_ms.serve", sv) == 61.5
+    assert read("tokens_per_s.serve", dict(sv, tokens=0)) is None
+    assert read("itl_p95_ms.serve", dict(sv, itl_p95_ms=float("nan"))) is None
+
+
+class _Ev:
+    def __init__(self, device, annotation, start, dur):
+        self.device, self.annotation = device, annotation
+        self.start, self.dur = start, dur
+
+    def device_type(self):
+        return self.device
+
+    def is_user_annotation(self):
+        return self.annotation
+
+    def start_ns(self):
+        return self.start
+
+    def duration_ns(self):
+        return self.dur
+
+
+def test_device_busy_is_the_union_of_the_device_calls():
+    from torch.autograd import DeviceType
+
+    cuda, cpu = DeviceType.CUDA, DeviceType.CPU
+    events = [_Ev(cuda, False, 100, 50), _Ev(cuda, False, 120, 60),  # 80
+              _Ev(cuda, False, 300, 10), _Ev(cuda, False, 305, 10),  # 15
+              _Ev(cuda, True, 0, 1000),  # a host range shown on the card
+              _Ev(cpu, False, 0, 1000), _Ev(cpu, True, 90, 20)]
+    busy, calls = harness.device_busy(events, cuda)
+    assert calls == 4
+    assert busy == pytest.approx((80 + 15) / 1e9)
+    assert harness.device_busy([], cuda) == (0.0, 0)
+
+
+def test_the_card_clock_sums_every_chunk():
+    import torch
+
+    # on the CPU the host's ops stand in for the device's calls
+    x = torch.ones(8)
+
+    def calls(chunks):
+        clock = harness.CardClock(torch.device("cpu"))
+        for n in chunks:
+            with clock.chunk():
+                for _ in range(n):
+                    x.add_(1)
+        busy, k = clock.busy()
+        assert busy > 0 and clock.busy() == (0.0, 0)
+        return k
+
+    assert 0 < calls([3]) < calls([5])
+    assert calls([3, 5]) == calls([3]) + calls([5])
+
+
 def test_kv_line_counts_what_the_contexts_fill():
     # two ticks of two active slots at contexts 10 and 30: mean 20
     ticks = [(0.0, [(1, 10), (2, 30)]), (0.2, [(1, 11), (2, 29)])]
-    line = serve.kv_line(G8B, ticks)
+    line = serve.kv_line(G8B, ticks, dense.state_row_bytes(G8B))
     filled = 2 * 20 * 147_456 / 1e9
     held = 64 * 4096 * 147_456 / 1e9
     assert "mean 20.0, max 30 of 4096" in line

@@ -7,9 +7,10 @@ import torch
 from portbench import harness
 from portbench.ref import dense as RD
 from portbench.ref import pq as R
-from portbench.systems import serve
 
 INF = R.INF_KEY
+dense = harness.Catalog().module("families", "dense")
+SERVE = harness.Catalog().module("systems", "serve")
 
 
 def _mix32(x: int) -> int:
@@ -112,7 +113,7 @@ SMALL = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, head_dim=16,
 
 def test_dense_reference_is_causal_and_ropes_from_position_zero():
     cfg = dict(harness.Catalog().cell("g8b-decode-4k")["config_file"], **SMALL)
-    p = serve.make_weights(cfg, 3, torch.device("cpu"), torch.float32)
+    p = dense.make_weights(cfg, 3, torch.device("cpu"), torch.float32)
     seq = torch.tensor([5, 9, 1, 77, 3, 3, 120])
     full, = RD.forward(cfg, p, [seq])
     part, = RD.forward(cfg, p, [seq[:4]])
@@ -121,7 +122,7 @@ def test_dense_reference_is_causal_and_ropes_from_position_zero():
     r = RD.rope(x, 1e4)
     torch.testing.assert_close(r[0], x[0])
     torch.testing.assert_close(r.norm(dim=-1), x.norm(dim=-1))
-    assert RD.served_gap(full, full.argmax(-1)) == 0.0
+    assert SERVE.served_gap(full, full.argmax(-1)) == 0.0
     w = torch.randn(64, 32)
     q = RD.quantize_fp8(w)
     assert (q - w).abs().max() <= w.abs().max(0).values.max() / 8
@@ -132,8 +133,8 @@ def test_dense_reference_matches_the_programs_float32_decode():
     from repro_torch.models.registry import build_model
 
     cfg = dict(harness.Catalog().cell("g8b-decode-4k")["config_file"], **SMALL)
-    p = serve.make_weights(cfg, 4, torch.device("cpu"), torch.float32)
-    mcfg = serve.model_config(cfg)
+    p = dense.make_weights(cfg, 4, torch.device("cpu"), torch.float32)
+    mcfg = dense.model_config(cfg)
     model = build_model(mcfg, compute_dtype=torch.float32, kv_chunk=8,
                         device="cpu")
     caches = init_caches(mcfg, 2, 16, dtype=torch.float32, device="cpu")
