@@ -1,6 +1,10 @@
 """Config system: architectures, input shapes, run settings.
 
-Copy of src/repro/configs/base.py, field for field.  Every architecture
+Copy of src/repro/configs/base.py, field for field, plus the port-only
+fields of `PORT_ONLY_FIELDS` (granite-4.0-h-small's shared expert,
+dropless routing, gated SSD norm, µP multipliers, NoPE and norm eps),
+whose defaults give the reference's arithmetic: every architecture the
+two packages share leaves them at their defaults.  Every architecture
 has one `configs/<id>.py` exporting CONFIG with the exact published
 dimensions; `registry.py` resolves `--arch <id>` strings and builds
 reduced smoke variants.
@@ -18,6 +22,10 @@ class MoEConfig:
     top_k: int
     every: int = 1  # MoE ffn every `every` layers (others dense)
     capacity_factor: float = 1.25
+    # port-only: every token keeps all its top_k experts (capacity T);
+    # a shared SwiGLU expert of this width (0: none) beside the routed ones
+    dropless: bool = False
+    shared_d_ff: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +36,8 @@ class SSMConfig:
     n_groups: int = 1
     d_conv: int = 4
     chunk: int = 128
+    # port-only: Mamba-2's gated RMSNorm of y * silu(z) before out_proj
+    gated_norm: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +68,17 @@ class ModelConfig:
     n_image_tokens: int = 1024
     embed_scale: bool = False  # gemma multiplies embeddings by sqrt(d_model)
     max_position: int = 1 << 20
+    # port-only (granite-4.0-h-small): the RMS norms' eps, RoPE on or off,
+    # the attention's softmax scale (None: 1/sqrt(head_dim)), and the µP
+    # multipliers: embeddings times `embed_multiplier`, each sublayer's
+    # output times `residual_multiplier` before its residual add, logits
+    # over `logits_divisor`
+    norm_eps: float = 1e-6
+    rope: bool = True
+    attn_scale: Optional[float] = None
+    embed_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_divisor: float = 1.0
 
     @property
     def resolved_head_dim(self) -> int:
@@ -94,6 +115,7 @@ class ModelConfig:
         if self.moe:
             n_moe = n_ffn // self.moe.every
             total += n_moe * (self.moe.n_experts * 3 * D * F + D * self.moe.n_experts)
+            total += n_moe * 3 * D * self.moe.shared_d_ff
             total += (n_ffn - n_moe) * ffn_dense
         else:
             total += n_ffn * ffn_dense
@@ -114,6 +136,29 @@ class ModelConfig:
         moe_total = n_moe * self.moe.n_experts * 3 * D * F
         moe_active = n_moe * self.moe.top_k * 3 * D * F
         return full - moe_total + moe_active
+
+
+# The fields the JAX package's dataclasses lack, by class.
+PORT_ONLY_FIELDS = {
+    "MoEConfig": ("dropless", "shared_d_ff"),
+    "SSMConfig": ("gated_norm",),
+    "ModelConfig": ("norm_eps", "rope", "attn_scale", "embed_multiplier",
+                    "residual_multiplier", "logits_divisor"),
+}
+
+
+def port_only_changes(cfg) -> list:
+    """The port-only fields of `cfg` (and of its `moe` and `ssm`) set away
+    from their defaults, as "Class.field"."""
+    out = []
+    for obj in (cfg, getattr(cfg, "moe", None), getattr(cfg, "ssm", None)):
+        if obj is None:
+            continue
+        name = type(obj).__name__
+        defaults = {f.name: f.default for f in dataclasses.fields(obj)}
+        out += [f"{name}.{k}" for k in PORT_ONLY_FIELDS.get(name, ())
+                if getattr(obj, k) != defaults[k]]
+    return out
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,5 +1,7 @@
 """--arch <id> resolution + reduced smoke-test variants (copy of
-src/repro/configs/registry.py)."""
+src/repro/configs/registry.py).  `list_configs` names the architectures
+the JAX package shares; `port_only_configs` those only the port has,
+which `get_config` and `reduced_config` resolve alike."""
 
 from __future__ import annotations
 
@@ -21,16 +23,25 @@ _ARCH_MODULES: Dict[str, str] = {
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "llama-3.2-vision-11b": "repro_torch.configs.llama3_2_vision_11b",
 }
+_PORT_ONLY_MODULES: Dict[str, str] = {
+    "granite-4.0-h-small": "repro_torch.configs.granite_4_0_h_small",
+}
 
 
 def list_configs():
     return sorted(_ARCH_MODULES)
 
 
+def port_only_configs():
+    return sorted(_PORT_ONLY_MODULES)
+
+
 def get_config(arch: str) -> ModelConfig:
-    if arch not in _ARCH_MODULES:
-        raise KeyError(f"unknown arch {arch!r}; known: {list_configs()}")
-    return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
+    module = _ARCH_MODULES.get(arch) or _PORT_ONLY_MODULES.get(arch)
+    if module is None:
+        raise KeyError(f"unknown arch {arch!r}; known: "
+                       f"{list_configs() + port_only_configs()}")
+    return importlib.import_module(module).CONFIG
 
 
 def reduced_config(arch: str) -> ModelConfig:
@@ -58,11 +69,13 @@ def reduced_config(arch: str) -> ModelConfig:
     if cfg.moe:
         updates["moe"] = MoEConfig(
             n_experts=4, top_k=min(cfg.moe.top_k, 2), every=cfg.moe.every,
-            capacity_factor=2.0,
+            capacity_factor=2.0, dropless=cfg.moe.dropless,
+            shared_d_ff=256 if cfg.moe.shared_d_ff else 0,
         )
     if cfg.ssm:
         updates["ssm"] = SSMConfig(
-            d_inner=512, head_dim=64, d_state=16, n_groups=2, chunk=32
+            d_inner=512, head_dim=64, d_state=16, n_groups=2, chunk=32,
+            gated_norm=cfg.ssm.gated_norm,
         )
     if cfg.family == "hybrid":
         updates["n_layers"] = cfg.hybrid_period

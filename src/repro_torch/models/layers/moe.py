@@ -22,6 +22,17 @@ Where PyTorch's primitives differ from the reference's:
 `cap` is a Python int from static shapes and nothing here reads the
 device, so a decode step stays capturable in a CUDA graph.
 
+Port-only (granite-4.0-h-small): `MoEDims.dropless` sets ``cap = T``, so
+no assignment is dropped whatever the load (an expert takes each token at
+most once, so it holds at most T) and the batched design stays, each
+expert's weights read once; `moe_block`'s `shared` weights add a shared
+SwiGLU expert, computed for every token and added to the routed output in
+the compute dtype.  With an `obs`, `moe_block` records spans
+``model.moe.route`` (router, top-k, aux loss), ``model.moe.experts``
+(dispatch, buffer, products), ``model.moe.combine`` and
+``model.moe.shared``, and counters ``moe.buffer_rows`` (E x cap) and
+``moe.assignments`` (T x K), host values from static shapes.
+
 `moe_block_ep` is the reference's expert-parallel block (its `shard_map`
 over the model axis), run on each rank of a `Mesh`: the tokens are
 replicated over the model axis, so each model column routes its local
@@ -37,12 +48,13 @@ overflow is decided locally (the reference's documented divergence from
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.distributed.collectives import enter, leave
-from repro_torch.models.layers.mlp import silu
+from repro_torch.models.layers.mlp import gated_mlp, silu
+from repro_torch.obs import NULL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,10 +63,14 @@ class MoEDims:
     n_experts_pad: int  # padded to model-axis multiple
     top_k: int
     capacity_factor: float = 1.25
+    dropless: bool = False  # port-only: cap = T (module docstring)
 
 
 def capacity(T: int, dims: MoEDims) -> int:
-    """Slots an expert holds for `T` tokens (the reference's `cap`)."""
+    """Slots an expert holds for `T` tokens (the reference's `cap`; T when
+    dropless)."""
+    if dims.dropless:
+        return T
     cap = int(max(1, (T * dims.top_k / dims.n_experts_pad)
                   * dims.capacity_factor))
     return min(cap, T)
@@ -147,19 +163,31 @@ def moe_block(
     w_up: torch.Tensor,  # (E_pad, D, F)
     w_down: torch.Tensor,  # (E_pad, F, D)
     dims: MoEDims,
+    shared: Optional[Tuple[torch.Tensor, ...]] = None,  # (D,Fs),(D,Fs),(Fs,D)
+    obs=NULL,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (output (B, S, D), aux_loss ()): aux is the standard
-    load-balancing loss (Switch §2.2)."""
+    load-balancing loss (Switch §2.2).  `shared`: the shared expert's
+    (gate, up, down) weights (module docstring)."""
     B, S, D = x.shape
     T = B * S
+    tr = obs.tracer
     xt = x.reshape(T, D)
-    probs, gate_vals, sel = route(xt, router_w, dims)
-    aux = balance_loss(probs, sel, dims)
+    with tr.span("model.moe.route", "model"):
+        probs, gate_vals, sel = route(xt, router_w, dims)
+        aux = balance_loss(probs, sel, dims)
     cap = capacity(T, dims)
-    slots = dispatch(sel, dims, cap)
-    out_buf = experts(xt, slots, cap, w_gate, w_up, w_down)
-    out = combine(out_buf, slots, gate_vals)
-    return out.reshape(B, S, D).to(x.dtype), aux
+    obs.metrics.inc("moe.buffer_rows", n=dims.n_experts_pad * cap)
+    obs.metrics.inc("moe.assignments", n=T * dims.top_k)
+    with tr.span("model.moe.experts", "model"):
+        slots = dispatch(sel, dims, cap)
+        out_buf = experts(xt, slots, cap, w_gate, w_up, w_down)
+    with tr.span("model.moe.combine", "model"):
+        out = combine(out_buf, slots, gate_vals).reshape(B, S, D).to(x.dtype)
+    if shared is not None:
+        with tr.span("model.moe.shared", "model"):
+            out = out + gated_mlp(x, *shared)
+    return out, aux
 
 
 def moe_block_ep(

@@ -23,6 +23,13 @@ heads explicitly (`Model._ssm_params`): each model rank calls
 `ssd_forward` and `ssd_decode_step` with its heads' columns of `in_proj`
 and of the conv, its heads' `A_log`, `dt_bias` and `D` and `SSMDims` of
 its heads and their B/C groups, which is the same per-head arithmetic.
+
+Port-only (`SSMDims.gated_norm`, granite-4.0-h-small): Mamba-2's gated
+RMSNorm replaces the output gate ``y * silu(z)`` before `out_proj`, in
+both the chunked forward and the decode step (`gated_norm`): y * silu(z)
+in f32, normalized over each of the `n_groups` groups of d_inner /
+n_groups channels with `norm_eps`, times ``1 + out_norm`` (the port's
+norm form), under a ``model.ssm.norm`` span of the `obs` given.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers.mlp import silu
+from repro_torch.obs import NULL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,6 +53,8 @@ class SSMDims:
     n_groups: int  # G (B/C shared across heads within a group)
     d_conv: int = 4
     chunk: int = 128
+    gated_norm: bool = False  # port-only (module docstring)
+    norm_eps: float = 1e-6
 
     @property
     def n_heads(self) -> int:
@@ -99,11 +109,31 @@ def _split_proj(zxbcdt: torch.Tensor, dims: SSMDims):
     return z, xbc, dt
 
 
+def gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
+               dims: SSMDims) -> torch.Tensor:
+    """Mamba-2's gated RMSNorm of y (..., d_inner) by the gate z, in f32
+    (module docstring)."""
+    g = y.float() * silu(z.float())
+    gs = g.reshape(*g.shape[:-1], dims.n_groups, -1)
+    var = torch.mean(gs * gs, dim=-1, keepdim=True)
+    gs = gs * torch.reciprocal(torch.sqrt(var + dims.norm_eps))
+    return gs.reshape(g.shape) * (1.0 + scale.float())
+
+
+def _gate(y, z, params, dims: SSMDims, obs):
+    """The output gate: ``y * silu(z)`` (f32), or the gated norm."""
+    if not dims.gated_norm:
+        return y * silu(z.float())
+    with obs.tracer.span("model.ssm.norm", "model"):
+        return gated_norm(y, z, params["out_norm"], dims)
+
+
 def ssd_forward(
     x_in: torch.Tensor,  # (B, S, D)
     params: dict,
     dims: SSMDims,
     h0: Optional[torch.Tensor] = None,  # (B, H, N, P) initial state
+    obs=NULL,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Full-sequence SSD.  Returns (y (B, S, D), final_state (B, H, N, P)
     f32, conv_tail (B, K-1, conv_channels) f32): the tail feeds decode."""
@@ -178,7 +208,7 @@ def ssd_forward(
     y = (y_intra.to(f32) + y_inter.to(f32)).reshape(B, S, H, P)
     y = y + params["D"].to(f32)[None, None, :, None] * xs.to(f32)
     y = y.reshape(B, S, dims.d_inner)
-    y = y * silu(z.to(f32))
+    y = _gate(y, z, params, dims, obs)
     return y.to(x_in.dtype) @ params["out_proj"], h, conv_tail
 
 
@@ -187,6 +217,7 @@ def ssd_decode_step(
     state: SSMState,
     params: dict,
     dims: SSMDims,
+    obs=NULL,
 ) -> Tuple[torch.Tensor, SSMState]:
     """One-token recurrent update."""
     B = x_in.shape[0]
@@ -220,6 +251,6 @@ def ssd_decode_step(
         "bhn,bhp->bhnp", B_h * dt_v[..., None], xs.float())
     y = torch.einsum("bhn,bhnp->bhp", C_h, h)
     y = y + params["D"].float()[None, :, None] * xs
-    y = y.reshape(B, dims.d_inner) * silu(z.float())
+    y = _gate(y.reshape(B, dims.d_inner), z, params, dims, obs)
     out = y.to(x_in.dtype) @ params["out_proj"]
     return out[:, None, :], SSMState(h=h, conv=new_conv)

@@ -94,7 +94,23 @@ default): `decode_step` is a ``model.decode_step`` span (cat ``model``)
 holding ``model.embed``, per layer ``model.attn`` (with ``model.attend``
 around the attention over the cache) and ``model.ffn``, ``model.moe`` or
 ``model.ssm``, and ``model.unembed``.  The FFN, MoE and SSD spans are
-their layers' own, so the full-sequence passes record them too.
+their layers' own, so the full-sequence passes record them too; inside
+them `moe_block`'s ``model.moe.route``, ``model.moe.experts``,
+``model.moe.combine`` and ``model.moe.shared`` and the SSD's
+``model.ssm.norm``, and the counters ``moe.buffer_rows`` and
+``moe.assignments`` (`layers/moe.py`, `layers/ssm.py`).
+
+The port-only fields of the config (`configs.base.PORT_ONLY_FIELDS`,
+granite-4.0-h-small) act here at their defaults' places: the RMS norms'
+eps, RoPE off (`project_qkv`'s `rope`) and the softmax scale
+(`AttnDims.qk_scale`, down to `decode_attend`), the embeddings times
+`embed_multiplier`, each sublayer's output times `residual_multiplier`
+before its residual add (`_res`), the logits over `logits_divisor`; the
+hybrid family's MoE FFN on the last of every `moe.every` positions (the
+odd ones at 2, as the reference's, and every one at 1), with the shared
+expert and dropless routing of `moe_block`, and the SSD's gated norm.  At
+their defaults the dense path issues the same calls.  A config that sets
+any of them runs on one device: a mesh refuses it.
 """
 
 from __future__ import annotations
@@ -105,7 +121,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, port_only_changes
 from repro_torch.distributed.collectives import enter, gather, leave, scatter
 from repro_torch.distributed.sharding import (P, ShardingRules, check_rules,
                                               entry_axes, fit_rank,
@@ -168,6 +184,9 @@ class Model(torch.nn.Module):
         self._unbound: Dict[int, Any] = {}
         self._keys: Dict[int, str] = {}
         self.mesh = mesh
+        if mesh is not None and port_only_changes(cfg):
+            raise ValueError(f"{cfg.name} sets {port_only_changes(cfg)}, "
+                             f"which run on one device, not on a mesh")
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's "
@@ -186,6 +205,7 @@ class Model(torch.nn.Module):
             n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.resolved_head_dim,
             rope_theta=cfg.rope_theta,
+            qk_scale=cfg.attn_scale,
         )
         # the encoder's self-attention and every cross-attention
         self.noncausal_dims = dataclasses.replace(self.attn_dims,
@@ -198,6 +218,7 @@ class Model(torch.nn.Module):
                 n_experts_pad=padded_experts(cfg, self.model_axis_size),
                 top_k=cfg.moe.top_k,
                 capacity_factor=cfg.moe.capacity_factor,
+                dropless=cfg.moe.dropless,
             )
         self.specs = None
         # one device: no batch axes, no tensor-parallel axis
@@ -279,7 +300,13 @@ class Model(torch.nn.Module):
     def _norm(self, x, scale, bias=None):
         if self.cfg.norm == "layer":
             return layer_norm(x, scale, bias)
-        return rms_norm(x, scale)
+        return rms_norm(x, scale, self.cfg.norm_eps)
+
+    def _res(self, x, y):
+        """The residual add of a sublayer's output `y`, times
+        `residual_multiplier` first unless that is 1."""
+        r = self.cfg.residual_multiplier
+        return x + (y if r == 1.0 else y * r)
 
     def _records(self, params) -> None:
         """Set up a forward: whether autograd records a parameter, and
@@ -424,7 +451,8 @@ class Model(torch.nn.Module):
             h = self._enter(h)
         ldims = self._local_dims(dims) if tp else dims
         wq, wk, wv, bias = self._qkv_weights(p)
-        q, k, v = project_qkv(h, wq, wk, wv, ldims, q_pos, kv_pos, bias)
+        q, k, v = project_qkv(h, wq, wk, wv, ldims, q_pos, kv_pos, bias,
+                              rope=self.cfg.rope)
         out = attend_chunked(q, k, v, ldims, q_pos, kv_pos,
                              kv_chunk=self.kv_chunk)
         B, S = out.shape[:2]
@@ -438,7 +466,7 @@ class Model(torch.nn.Module):
                     kv_pos, bias)
             cache = (self._kv_cache_layout(k, tp and self._kv_local),
                      self._kv_cache_layout(v, tp and self._kv_local))
-        return x + y, cache
+        return self._res(x, y), cache
 
     def _local_dims(self, dims: AttnDims) -> AttnDims:
         """`dims` with this rank's heads (tensor-parallel attention)."""
@@ -532,7 +560,7 @@ class Model(torch.nn.Module):
         bias = (p["bq"], p["bk"], p["bv"]) if "bq" in p else None
         q, k_new, v_new = project_qkv(h, p["wq"], p["wk"], p["wv"],
                                       self.attn_dims, idx.qpos, idx.qpos,
-                                      bias)
+                                      bias, rope=self.cfg.rope)
         at = (idx.rows, idx.at)
         if scales is not None:
             ks, vs = scales
@@ -556,7 +584,7 @@ class Model(torch.nn.Module):
                     q, k, v, self.attn_dims, idx.qpos, idx.pos,
                     kv_chunk=self.kv_chunk, kv_len=idx.kv_len)
         y = out.reshape(B, 1, -1) @ p["wo"]
-        return x + y
+        return self._res(x, y)
 
     def _heads_all(self, *ts):
         """Each (B, S, h_local, hd) tensor with every rank's heads
@@ -766,7 +794,7 @@ class Model(torch.nn.Module):
         y = gated_mlp(h, self._w(p, "w_gate", keep=col),
                       self._w(p, "w_up", keep=col),
                       self._w(p, "w_down", keep=row), self.cfg.act)
-        return x + self._leave(y)
+        return self._res(x, self._leave(y))
 
     def _moe_ffn(self, x, p):
         with self.obs.tracer.span("model.moe", "model"):
@@ -780,12 +808,14 @@ class Model(torch.nn.Module):
                 self._w(p, "e_up", keep=0), self._w(p, "e_down", keep=0),
                 self.moe_dims, self.mesh, self._bx, self._tp)
             return x + y, aux
+        shared = ((p["s_gate"], p["s_up"], p["s_down"]) if "s_gate" in p
+                  else None)
         y, aux = moe_block(h, p["router"], p["e_gate"], p["e_up"],
-                           p["e_down"], self.moe_dims)
+                           p["e_down"], self.moe_dims, shared, self.obs)
         if self.mesh is not None and self._bx:  # per-rank aux, pmean'd
             aux = leave(aux / self.mesh.axis_size(self._bx), self.mesh,
                         self._bx)
-        return x + y, aux
+        return self._res(x, y), aux
 
     def _ssm_params(self, p):
         """The SSD leaves as this rank computes with them: its heads'
@@ -820,8 +850,9 @@ class Model(torch.nn.Module):
             else:  # the state's block of heads
                 h_last = self._block(h_last, 1)
             return x + y, h_last, self._conv_tail(h, p)
-        y, h_last, conv_tail = ssd_forward(h, p, self.ssm_dims, h0)
-        return x + y, h_last, conv_tail
+        y, h_last, conv_tail = ssd_forward(h, p, self.ssm_dims, h0,
+                                           obs=self.obs)
+        return self._res(x, y), h_last, conv_tail
 
     def _block(self, t, dim: int):
         """This rank's block of dimension `dim` over the model axis."""
@@ -976,10 +1007,12 @@ class Model(torch.nn.Module):
         return x, caches, torch.zeros((), device=x.device)
 
     def _hybrid_ffn(self, x, params, sb: int, pos: int, slot: dict):
-        """The FFN after position `pos` of superblock `sb`: MoE on odd
-        positions, dense on even ones (`slot` counts each kind's index in
-        the superblock).  Returns (x, aux or None)."""
-        if pos % self.cfg.moe.every == 1:
+        """The FFN after position `pos` of superblock `sb`: MoE on the last
+        of every `moe.every` positions (odd ones at 2, every one at 1),
+        dense on the others (`slot` counts each kind's index in the
+        superblock).  Returns (x, aux or None)."""
+        every = self.cfg.moe.every
+        if pos % every == every - 1:
             x, a = self._moe_ffn(x, self._layer(params["moe"], sb,
                                                 slot["moe"]))
             slot["moe"] += 1
@@ -1040,6 +1073,8 @@ class Model(torch.nn.Module):
             # reference's jnp.asarray(., compute_dtype)
             x = x * float(torch.tensor(self.cfg.d_model ** 0.5,
                                        dtype=self.compute_dtype))
+        if self.cfg.embed_multiplier != 1.0:
+            x = x * self.cfg.embed_multiplier
         return x
 
     def _embed_sharded(self, params, tokens):
@@ -1064,6 +1099,11 @@ class Model(torch.nn.Module):
         return (self._tp,) if d == (0 if name == "embed" else 1) else ()
 
     def _unembed(self, params, x):
+        logits = self._unembed_raw(params, x)
+        d = self.cfg.logits_divisor
+        return logits if d == 1.0 else logits / d
+
+    def _unembed_raw(self, params, x):
         x = self._norm(x, params["final_norm"].to(self.compute_dtype),
                        params.get("final_norm_b"))
         if self.mesh is not None:
@@ -1153,10 +1193,10 @@ class Model(torch.nn.Module):
         xin = self._norm(x, norm)
         if self.mesh is None or self._tp is None:
             y, st = ssd_decode_step(xin, SSMState(h=h, conv=conv), p,
-                                    self.ssm_dims)
+                                    self.ssm_dims, obs=self.obs)
             h.copy_(st.h)
             conv.copy_(st.conv)
-            return x + y
+            return self._res(x, y)
         q, dims = self._ssm_params(p)
         conv_full = gather_full(conv, self.mesh, P(None, None, self._tp))
         if self._ssm_tp:

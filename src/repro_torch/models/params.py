@@ -6,7 +6,9 @@ two, superblock then position), the reference's key paths, shapes and
 scales (0.02; ``wo``, ``w_down``, ``w_out``, ``e_down`` and ``out_proj``
 over sqrt(2L); ``embed`` and ``head`` over sqrt(D); ``conv_w`` 0.1; norms,
 biases and the VLM's cross-attention ``gate`` zero; the SSD's ``A_log``
-log(1..H) and ``D`` one).  The enc-dec family stacks its encoder
+log(1..H) and ``D`` one; the port-only shared expert ``s_gate``,
+``s_up``, ``s_down`` as the dense MLP's and the gated SSD norm's
+``out_norm`` zero).  The enc-dec family stacks its encoder
 (``enc_attn``, ``enc_mlp``) and decoder (``dec_attn``, ``dec_cross``,
 ``dec_mlp``) layers; the VLM's ``cross`` holds one attention layer for
 every ``cross_attn_every`` layers.  The experts pad to a multiple of the
@@ -106,13 +108,18 @@ def _mlp_layout(cfg: ModelConfig, n: int) -> Dict[str, Leaf]:
 def _moe_layout(cfg: ModelConfig, n: int, e_pad: int) -> Dict[str, Leaf]:
     D, F = cfg.d_model, cfg.d_ff
     s = 0.02
-    return {
+    out = {
         "norm": ((n, D), None),
         "router": ((n, D, e_pad), s),
         "e_gate": ((n, e_pad, D, F), s),
         "e_up": ((n, e_pad, D, F), s),
         "e_down": ((n, e_pad, F, D), s / math.sqrt(2 * cfg.n_layers)),
     }
+    Fs = cfg.moe.shared_d_ff
+    if Fs:  # port-only: the shared expert
+        out |= {"s_gate": ((n, D, Fs), s), "s_up": ((n, D, Fs), s),
+                "s_down": ((n, Fs, D), s / math.sqrt(2 * cfg.n_layers))}
+    return out
 
 
 def ssm_dims(cfg: ModelConfig):
@@ -121,14 +128,15 @@ def ssm_dims(cfg: ModelConfig):
     sc = cfg.ssm
     return SSMDims(d_model=cfg.d_model, d_inner=sc.d_inner,
                    head_dim=sc.head_dim, d_state=sc.d_state,
-                   n_groups=sc.n_groups, d_conv=sc.d_conv, chunk=sc.chunk)
+                   n_groups=sc.n_groups, d_conv=sc.d_conv, chunk=sc.chunk,
+                   gated_norm=sc.gated_norm, norm_eps=cfg.norm_eps)
 
 
 def _ssm_layout(cfg: ModelConfig, n: int) -> Dict[str, Leaf]:
     dims = ssm_dims(cfg)
     s = 0.02
     H = dims.n_heads
-    return {
+    out = {
         "norm": ((n, cfg.d_model), None),
         "in_proj": ((n, cfg.d_model, dims.in_proj_out), s),
         "conv_w": ((n, dims.d_conv, dims.conv_channels), 0.1),
@@ -139,6 +147,9 @@ def _ssm_layout(cfg: ModelConfig, n: int) -> Dict[str, Leaf]:
         "out_proj": ((n, dims.d_inner, cfg.d_model),
                      s / math.sqrt(2 * cfg.n_layers)),
     }
+    if dims.gated_norm:  # port-only: the gated norm's scale
+        out["out_norm"] = ((n, dims.d_inner), None)
+    return out
 
 
 def _restack(layout: Dict[str, Leaf], nsb: int, per: int) -> Dict[str, Leaf]:
@@ -200,8 +211,9 @@ def param_layout(cfg: ModelConfig, model_axis: int = 1) -> Tree:
             _moe_layout(cfg, nsb * n_moe_sb,
                         padded_experts(cfg, model_axis)),
             nsb, n_moe_sb)
-        layout["mlp"] = _restack(_mlp_layout(cfg, nsb * n_dense_sb), nsb,
-                                 n_dense_sb)
+        if n_dense_sb:  # none where every position has MoE (every 1)
+            layout["mlp"] = _restack(_mlp_layout(cfg, nsb * n_dense_sb),
+                                     nsb, n_dense_sb)
     else:
         raise ValueError(fam)
     return layout
@@ -298,7 +310,8 @@ _ROLE = {
     "e_up": "expert_in", "e_down": "expert_out", "in_proj": "ssm_in",
     "conv_w": "conv_kernel", "conv_b": "ssm_small", "A_log": _REPLICATED2,
     "dt_bias": _REPLICATED2, "D": _REPLICATED2, "out_proj": "ssm_out",
-    "gate": P(None),
+    "gate": P(None), "s_gate": "w_in", "s_up": "w_in", "s_down": "w_out",
+    "out_norm": _REPLICATED2,
 }
 
 

@@ -9,10 +9,15 @@ its length reaches ``max_seq - 1`` (`full`), so no cache write falls past
 the end.  Every family goes through `init_caches` and `decode_step` alone;
 as in the
 reference, the enc-dec and VLM caches' cross-attention K/V (`xk`, `xv`)
-stay zero (no request carries audio or an image).  As in the
-reference, admitting a request resets its slot's length and token but not
-its SSD state: a recycled slot starts from its predecessor's recurrent
-state (ROADMAP queue 3).  With ``cfg=None`` the
+stay zero (no request carries audio or an image).  Admitting a request
+resets its slot's length and token and, where the caches hold SSD states
+(`ssm_h`, `ssm_conv`), zeroes the admitted slots' states, one indexed
+write each with no host read (counted by the ``engine.ssm_state_resets``
+counter): a recycled slot starts as a fresh one does.  The reference
+resets the length and token alone, so a recycled slot starts from its
+predecessor's recurrent state; `EngineConfig.reset_ssm_state` False keeps
+that behaviour (the tests that hold the engine to the reference).  With
+``cfg=None`` the
 engine runs the model-free synthetic decode (the next token is a pure
 function of the current one and never the EOS id, so completion timing is
 driven by `max_new_tokens`): the engine loop the SLO and overload
@@ -105,6 +110,9 @@ class EngineConfig:
     # Chrome trace there, the tracer's spans merged in when both are set.
     tracing: bool = False
     profile_dir: Optional[str] = None
+    # Zero an admitted slot's SSD states (module docstring); False keeps a
+    # recycled slot's predecessor's state, as the reference does.
+    reset_ssm_state: bool = True
 
 
 class ServeEngine:
@@ -276,6 +284,27 @@ class ServeEngine:
                 device=self.device)
             self.tokens[idx, 0] = first.to(torch.int32)
             self.lengths[idx] = 0
+            self._reset_ssm(slots[:len(admitted)])
+
+    def _reset_ssm(self, slots: List[int]) -> None:
+        """Zero the SSD states (`ssm_h`, `ssm_conv`) of `slots`, one
+        indexed write each; on a mesh, of the slots among this rank's
+        rows.  Nothing where the caches hold none, or the config keeps a
+        recycled slot's state."""
+        if not (self.ecfg.reset_ssm_state and isinstance(self.caches, dict)
+                and "ssm_h" in self.caches):
+            return
+        if self._rows is not None:
+            first, stop = self._rows.start, self._rows.stop
+            slots = [s - first for s in slots if first <= s < stop]
+            if not slots:
+                return
+        idx = torch.as_tensor(slots, dtype=torch.int64, device=self.device)
+        # the batch axis: (..., B, H, N, P) and (..., B, K-1, C)
+        for name, tail in (("ssm_h", 4), ("ssm_conv", 3)):
+            c = self.caches[name]
+            c.index_fill_(c.dim() - tail, idx, 0.0)
+        self.obs.metrics.inc("engine.ssm_state_resets", n=len(slots))
 
     def _note_arrivals(self, arrivals: List[Request], step: int):
         """Stamp arrival time on the engine-step clock: the scheduler's

@@ -55,7 +55,8 @@ from repro.models.layers import rope as JR
 from repro.models.params import padded_vocab as j_padded_vocab
 from repro.models.registry import build_model as j_build_model
 import repro_torch.configs.base as TB
-from repro_torch.configs.registry import get_config, list_configs, reduced_config
+from repro_torch.configs.registry import (get_config, list_configs,
+                                          port_only_configs, reduced_config)
 from repro_torch.convert import params_from_numpy, params_to_numpy
 from repro_torch.models import params as TP
 from repro_torch.models.io import _cache_shapes, init_caches
@@ -285,13 +286,32 @@ def test_decode_attend_matches_jax(Hq, Hkv):
 # ---------------------------------------------------------------------------
 
 
+def _shared_fields(cfg) -> dict:
+    """`dataclasses.asdict(cfg)` without the port-only fields
+    (`TB.PORT_ONLY_FIELDS`) of it and of its `moe` and `ssm`, each
+    asserted at its default first."""
+    assert TB.port_only_changes(cfg) == [], cfg.name
+    out = dataclasses.asdict(cfg)
+    for d, cls in ((out, "ModelConfig"), (out["moe"], "MoEConfig"),
+                   (out["ssm"], "SSMConfig")):
+        for f in TB.PORT_ONLY_FIELDS[cls] if d is not None else ():
+            del d[f]
+    return out
+
+
 def test_configs_and_shapes_equal_jax():
     assert list_configs() == j_list_configs()
+    # the one architecture only the port has, unknown to the JAX registry
+    assert port_only_configs() == ["granite-4.0-h-small"]
+    for arch in port_only_configs():
+        with pytest.raises(KeyError):
+            j_get_config(arch)
+        assert arch not in list_configs()
     for arch in list_configs():
         for ours, theirs in ((get_config(arch), j_get_config(arch)),
                              (reduced_config(arch), j_reduced_config(arch))):
             assert type(ours).__name__ == type(theirs).__name__
-            assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+            assert _shared_fields(ours) == dataclasses.asdict(theirs)
             assert ours.resolved_head_dim == theirs.resolved_head_dim
             assert ours.param_count() == theirs.param_count()
             assert ours.active_param_count() == theirs.active_param_count()
@@ -404,8 +424,9 @@ def test_full_width_experts_pad_as_the_mesh_free_reference(arch):
     the norm scales and the vocab's padding), its 40 experts unpadded."""
     jm = j_build_model(j_get_config(arch), remat=False)
     cfg = get_config(arch)
-    assert (dataclasses.asdict(build_model(cfg, device="cpu").moe_dims)
-            == dataclasses.asdict(jm.moe_dims))
+    dims = dataclasses.asdict(build_model(cfg, device="cpu").moe_dims)
+    assert dims.pop("dropless") is False  # the port-only field, off
+    assert dims == dataclasses.asdict(jm.moe_dims)
     jtree = jax.eval_shape(lambda k: jm.init(k)[0], jax.random.key(0))
     want = {p: tuple(a.shape) for p, a in TP.leaves(jtree)}
     got = {p: s for p, (s, _) in TP.leaves(TP.param_layout(cfg))}

@@ -475,3 +475,59 @@ def test_spans_on_the_profilers_clock_hold_their_ops(tree, monkeypatch,
     assert model == pytest.approx(3 + 3 * cfg.n_layers)
     assert per_tick["engine.step"] == per_tick["tick"] == 1
     assert per_tick["pq.step"] == 1
+
+
+def test_hybrid_decode_spans_nest_and_its_counters_count(tree):
+    """The engine with reduced granite-4.0-h-small (a port-only
+    architecture: no reference counterpart), traced: each decode step's
+    `model.decode_step` holds, per layer, a `model.moe` with
+    `model.moe.route`, `.experts`, `.combine` and `.shared` in order, and
+    per SSD layer a `model.ssm` holding `model.ssm.norm`; the counters read
+    E x cap and T x K a MoE call (cap = T, dropless) and the admitted
+    slots' SSD resets.  The same engine untraced records no span and
+    counts the same."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.params import init_params
+
+    cfg = reduced_config("granite-4.0-h-small")
+    params = init_params(cfg, device="cpu")
+    B, K = 4, 4
+    counts = []
+    for tracing in (True, False):
+        eng = ServeEngine(cfg, params, EngineConfig(
+            batch_size=B, max_seq=32, kv_chunk=16, sched_window=K,
+            tracing=tracing), device="cpu", tree=tree)
+        eng._advance([_new_reqs(0, 6, 0)] + [[]] * (K - 1), 0, 1 << 62)
+        eng._advance([[]] * K, K, 1 << 62)
+        m = eng.obs.metrics
+        steps, n_moe = 2 * K, cfg.n_layers
+        E, topk = cfg.moe.n_experts, cfg.moe.top_k
+        assert m.value("moe.buffer_rows") == steps * n_moe * E * B
+        assert m.value("moe.assignments") == steps * n_moe * B * topk
+        assert m.value("engine.ssm_state_resets") == len(eng.admit_step) == 6
+        counts.append(m.to_dict())
+        ev = [e for e in eng.obs.tracer.events if e["ph"] == "X"]
+        if not tracing:
+            assert ev == []
+            continue
+        by_id = {e["span_id"]: e for e in ev}
+
+        def parent(e):
+            return by_id.get(e["parent_id"], {}).get("name")
+
+        for step in (e for e in ev if e["name"] == "model.decode_step"):
+            kids = [e for e in ev if e["parent_id"] == step["span_id"]]
+            names = [e["name"] for e in kids]
+            assert names.count("model.moe") == n_moe
+            assert names.count("model.ssm") == n_moe - 1
+        moe = [e for e in ev if e["name"] == "model.moe"]
+        assert len(moe) == steps * n_moe
+        assert all(parent(e) == "model.decode_step" for e in moe)
+        for e in moe:
+            inner = [x["name"] for x in ev if x["parent_id"] == e["span_id"]]
+            assert inner == ["model.moe.route", "model.moe.experts",
+                             "model.moe.combine", "model.moe.shared"]
+        norms = [e for e in ev if e["name"] == "model.ssm.norm"]
+        assert len(norms) == steps * (n_moe - 1)
+        assert all(parent(e) == "model.ssm" for e in norms)
+    assert counts[0] == counts[1]

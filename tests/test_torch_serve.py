@@ -555,10 +555,11 @@ def _e2e_workload(cls, new_tokens=4):
 
 
 def _model_runs(tree, model_tree, mp, dtype, new_tokens=4, arch=MODEL_ARCH,
-                **ecfg):
+                port=None, **ecfg):
     """The reference engine and the port's on the same weights and
     workload; in f32 both build their model and caches in f32 (their
-    `build_model` and `init_caches`, imported at call time, patched)."""
+    `build_model` and `init_caches`, imported at call time, patched).
+    `port`: the port's own `EngineConfig` fields, beside `ecfg`."""
     if dtype == "f32":
         mp.setattr(JMR, "build_model", functools.partial(
             JMR.build_model, compute_dtype=jnp.float32))
@@ -577,8 +578,8 @@ def _model_runs(tree, model_tree, mp, dtype, new_tokens=4, arch=MODEL_ARCH,
     cfg = reduced_config(arch)
     eng = ServeEngine(cfg, params_from_numpy(model_tree, cfg, device="cpu",
                                              dtype=td),
-                      EngineConfig(**ecfg), device="cpu", tree=tree,
-                      draws=draws_from_keys(scheduler_keys(
+                      EngineConfig(**ecfg, **(port or {})), device="cpu",
+                      tree=tree, draws=draws_from_keys(scheduler_keys(
                           0, want["steps"] + K), 16, 64, H))
     got = eng.run(_e2e_workload(Request, new_tokens), max_steps=300)
     for name, c in eng.caches.items():
@@ -642,15 +643,18 @@ def test_family_engine_matches_jax(tree, arch, dtype, K):
     """`ServeEngine` with a reduced MoE or SSM model against the reference
     engine on the same weights and draws: every request completes, with
     the same admissions, completion steps, health and carry; in bf16 with
-    EOS off, and in f32 with the tokens equal too.  Neither engine resets
-    a recycled slot's SSM state (ROADMAP queue 3): the port matches the
-    reference there as well."""
+    EOS off, and in f32 with the tokens equal too.  The reference does not
+    reset a recycled slot's SSM state, so the port's engine is set to keep
+    it too (`reset_ssm_state` off): the port matches the reference there
+    as well."""
     ecfg = dict(batch_size=4, max_seq=32, sched_window=K)
     if dtype == "bf16":
         ecfg["eos_token"] = -1
     with pytest.MonkeyPatch.context() as mp:
         ref, want, eng, got = _model_runs(tree, _j_tree(arch), mp, dtype,
-                                          arch=arch, **ecfg)
+                                          arch=arch,
+                                          port=dict(reset_ssm_state=False),
+                                          **ecfg)
     assert got["completed"] == 12
     assert all(len(v) > 0 for v in eng.outputs.values())
     _same_serving(ref, want, eng, got)
